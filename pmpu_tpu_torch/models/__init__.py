@@ -1,0 +1,4 @@
+from pmpu_tpu_torch.models.prob_unet import ProbabilisticUNet
+from pmpu_tpu_torch.models.unet import UNet
+
+__all__ = ["ProbabilisticUNet", "UNet"]
