@@ -7,19 +7,33 @@ Phases, each printing at least one line; any failure exits non-zero:
 
 1. device  — refuse to run without CUDA; print the card's name and power
              limit (nvidia-smi).
-2. build   — compile both CUDA sources with nvcc for sm_90a (in parallel).
+2. build   — compile the three CUDA sources with nvcc for sm_90a (in
+             parallel).
 3. kernels — each kernel against its plain PyTorch version on the card:
              fcomb mean-decode at (N=16, 128², Cf=f0=64, latent 6, C=3,
              S=5) in f32 and bf16 plus two small odd cases; gather-normalize
-             with repeated ids, an all-zero plane and labels (bit-exact).
+             with repeated ids, an all-zero plane and labels (bit-exact);
+             the int8 conv chain, bit-exact, in both launch forms (row
+             stripes and the whole image), L = 1, 2, 3, 3×3 and 1×1,
+             Cin = 1, odd H and W, f32/bf16/int8 in and out, split input.
 4. parity  — the whole path (probunet, filters 8,16, 32³, mean_z, f32, TF32
-             off) on the card against the same weights on the CPU.
+             off) on the card against the same weights on the CPU; then the
+             same for the int8 path (``quantize="int8"``), the CPU run's
+             scale file loaded on the card.
 5. full    — the main path at full width: probunet 64..1024, latent 6,
              3 classes, fcomb depth 4, bf16, 5 samples, 3 chunks of 128
              slices, one seeded 128³ volume on the uint8 wire, through
              ``make_task`` and ``VolumeEvaluator.evaluate_volume``; launch
              counts of the main path; timings; each kernel at the main
              path's shapes against its plain version.
+6. int8    — the same volume and weights through the int8 path
+             (``quantize="int8"``, self-calibrated, scale file in a
+             temporary directory): calibration time, launch counts, a fresh
+             evaluator reloading the file reproduces the fused volume bit for
+             bit, timings beside phase 5's, int8-vs-bf16 argmax agreement;
+             every conv-chain launch of one chunk replayed against the plain
+             version (bit-exact) and timed beside its bound. The kernels
+             line's conv-chain entry averages those launches.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--json PATH`` also writes
@@ -33,6 +47,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -42,6 +57,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # published dense peaks of one H100 SXM (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 
@@ -134,6 +150,62 @@ def phase_kernels():
     return errs
 
 
+def _cuda_chain(seed, shapes, kernel=3):
+    from pmpu_tpu_torch.ops.cuda.qconv import make_random_chain
+
+    return [{k: v.cuda() for k, v in l.items()} for l in make_random_chain(seed, shapes, kernel)]
+
+
+def phase_qconv():
+    """The int8 conv-chain kernel against its plain version, bit for bit."""
+    from pmpu_tpu_torch.ops.cuda.qconv import chain_reference, fused_qchain
+
+    f32, bf16, s8 = torch.float32, torch.bfloat16, torch.int8
+    g = torch.Generator(device="cuda").manual_seed(8)
+    sc = {v: torch.tensor(v, device="cuda") for v in (0.021, 0.034, 0.05)}
+
+    def rand_x(n, h, w, c, dtype):
+        if dtype == s8:
+            return torch.randint(-127, 128, (n, h, w, c), generator=g, device="cuda",
+                                 dtype=torch.int8)
+        return (torch.randn((n, h, w, c), generator=g, device="cuda") * 0.5).to(dtype)
+
+    cases = [  # label, layers, (n, h, w), input dtype, output dtype, tile_h, extra
+        ("L=2 3x3 8-16-16", _cuda_chain(1, [(8, 16), (16, 16)]), (4, 8, 8), f32, f32, None, {}),
+        ("L=1 odd 5x7", _cuda_chain(2, [(4, 8)]), (4, 5, 7), f32, f32, None, {}),
+        ("L=3 bf16 out", _cuda_chain(3, [(8, 8), (8, 4), (4, 4)]), (3, 6, 6), f32, bf16, None, {}),
+        ("L=3 stripes of 3", _cuda_chain(4, [(4, 8), (8, 8), (8, 4)]), (3, 12, 12), f32, f32, 3, {}),
+        ("Cin=1 stripes of 4", _cuda_chain(5, [(1, 8), (8, 8)]), (4, 16, 16), f32, bf16, 4, {}),
+        ("1x1", _cuda_chain(6, [(8, 16)], 1), (4, 4, 4), f32, f32, None, {}),
+        ("3x3 then 1x1, odd 9x13, bf16 in", _cuda_chain(7, [(16, 32)]) + _cuda_chain(8, [(32, 8)], 1),
+         (2, 9, 13), bf16, f32, None, {}),
+        ("int8 in/out, odd 9x11, stripes of 3", _cuda_chain(9, [(40, 24)]), (3, 9, 11), s8, s8, 3,
+         {"x_scale": sc[0.021], "out_xs": sc[0.05]}),
+        ("int8 in, L=2, whole image", _cuda_chain(10, [(64, 96), (96, 64)]), (2, 16, 16), s8, bf16,
+         None, {"x_scale": sc[0.021]}),
+        ("int8 in, L=2, stripes of 4", _cuda_chain(10, [(64, 96), (96, 64)]), (2, 16, 16), s8, bf16,
+         4, {"x_scale": sc[0.021]}),
+        ("no relu on the last layer", _cuda_chain(11, [(8, 8)], 1), (2, 5, 5), f32, f32, None,
+         {"relu": False}),
+    ]
+    for split_out in (s8, f32):
+        cases.append((f"split 24+40 -> 64 -> 32, {split_out}",
+                      _cuda_chain(12, [(64, 64), (64, 32)]), (3, 10, 7), s8, split_out, None,
+                      {"x_scale": sc[0.021], "x2": rand_x(3, 10, 7, 40, s8),
+                       "x2_scale": sc[0.034], "out_xs": sc[0.05]}))
+    for label, layers, (n, h, w), in_dt, out_dt, tile, extra in cases:
+        cin = layers[0]["w"].shape[2] - (extra["x2"].shape[-1] if "x2" in extra else 0)
+        x = rand_x(n, h, w, cin, in_dt)
+        got = fused_qchain(x, layers, out_dt, tile, **extra)
+        want = chain_reference(x, layers, out_dt, **extra)
+        torch.cuda.synchronize()
+        require(got.dtype == out_dt and torch.equal(got, want),
+                f"qconv {label}: kernel differs from its plain version "
+                f"({int((got != want).sum())} of {got.numel()} values)")
+    print(f"  int8 conv chain: {len(cases)} cases (stripes and whole image, L=1..3, 3x3 and "
+          f"1x1, Cin=1, odd H and W, f32/bf16/int8 in and out, split input): bit-exact")
+
+
 def phase_parity():
     from pmpu_tpu_torch import VolumeEvaluator, make_task
 
@@ -154,6 +226,25 @@ def phase_parity():
     require(diff <= 1e-4, f"parity: fused probabilities differ by {diff}")
     require(np.array_equal(gpu["dice"], cpu["dice"]), "parity: Dice tables differ")
 
+    from pmpu_tpu_torch.ops.cuda.qconv import fused_qchain
+
+    print("phase 4: int8 path on the card vs the CPU (same model, mean_z, f32, one scale file)")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "scales.json")
+        for device in ("cpu", "cuda"):  # the CPU run calibrates and writes the file
+            task = make_task("probunet", num_filters=(8, 16), device=device, seed=5)
+            fused_qchain.launches = 0
+            out[device] = VolumeEvaluator(task, mean_z=True, quantize="int8", calibration=path,
+                                          device=device).evaluate_volume(vol, truth)
+    gpu, cpu = out["cuda"], out["cpu"]
+    diff = (gpu["fused"].cpu() - cpu["fused"]).abs().max().item()
+    mism = int((gpu["argmax"] != cpu["argmax"]).sum())
+    print(f"  fused max |diff| {diff:.3g}, argmax mismatches {mism}, dice equal "
+          f"{np.array_equal(gpu['dice'], cpu['dice'])}, conv-chain launches {fused_qchain.launches}")
+    require(fused_qchain.launches > 0, "int8 parity: the conv-chain kernel was not launched")
+    require(mism == 0, f"int8 parity: {mism} argmax mismatches")
+    require(np.array_equal(gpu["dice"], cpu["dice"]), "int8 parity: Dice tables differ")
+
 
 def synthetic_volume(cube, seed):
     """A seeded image with two nested ellipsoids and its 3-class truth."""
@@ -169,12 +260,21 @@ def synthetic_volume(cube, seed):
 
 def stage_ms(ev, vol, truth):
     """Milliseconds between CUDA events around each stage of one volume,
-    replaying ``evaluate_volume`` step by step."""
+    replaying ``evaluate_volume`` step by step (the int8 backbone and prior
+    when ``ev.quantize``)."""
     from pmpu_tpu_torch.inference.engine import _pack2bit, _unpack2bit, chunk_generator, eval_chunk_plan
     from pmpu_tpu_torch.inference.fusion import fuse_mean, normalize_slabs, reassemble_views, view_slabs
+    from pmpu_tpu_torch.models.quantized import probunet_features_prior_int8
     from pmpu_tpu_torch.ops.cuda.fcomb_mean import fcomb_mean_decode
 
     net = ev.task.net
+
+    def forward(x):
+        if ev.quantize:
+            return probunet_features_prior_int8(ev._qvars, x, net, dtype=net.dtype)
+        out = net(x)
+        return out.unet_features, out.prior.loc, out.prior.scale
+
     marks = []
 
     def mark(name):
@@ -192,12 +292,12 @@ def stage_ms(ev, vol, truth):
         b, nchunk = eval_chunk_plan(slabs.shape[0], *slabs.shape[1:], ev.eval_batch)
         logits = []
         for i in range(nchunk):
-            out = net(slabs[i * b:(i + 1) * b, ..., None])
-            eps = torch.randn((ev.n_samples,) + tuple(out.prior.loc.shape),
+            feats, loc, scale = forward(slabs[i * b:(i + 1) * b, ..., None])
+            eps = torch.randn((ev.n_samples,) + tuple(loc.shape),
                               generator=chunk_generator(ev.device, 0, i), device=ev.device)
-            zs = out.prior.loc[None] + out.prior.scale[None] * eps
+            zs = loc[None] + scale[None] * eps
             mark("backbone+prior")
-            logits.append(fcomb_mean_decode(out.unet_features, zs, net.fcomb_params(),
+            logits.append(fcomb_mean_decode(feats, zs, net.fcomb_params(),
                                              net.no_convs_fcomb, net.dtype))
             mark("fcomb")
         views = reassemble_views(torch.softmax(torch.cat(logits), dim=-1))
@@ -326,7 +426,167 @@ def phase_full(card):
     ]
     summary = {"card": card, "wall_s_per_volume": walls, "event_ms_per_volume": spans,
                "stage_ms": stages, "peak_allocated_gb": peak_gb, "dice": r["dice"].tolist()}
-    return kernels, summary
+    return kernels, summary, (task, vol, truth, r)
+
+
+def chain_cost(x, layers, kw, out):
+    """(int8 operations, bytes each read or written once, stripe rows, H)
+    of one conv-chain launch."""
+    from pmpu_tpu_torch.ops.cuda.qconv import launch_plan
+
+    n, h, w, _ = x.shape
+    ops = sum(2.0 * n * h * w * l["w"].numel() for l in layers)
+    x2 = kw.get("x2")
+    nbytes = (x.numel() * x.element_size() + out.numel() * out.element_size()
+              + sum(l["w"].numel() + 8 * l["w"].shape[-1] for l in layers)
+              + (0 if x2 is None else x2.numel()))
+    return ops, nbytes, launch_plan(x, layers, x2)[1], h
+
+
+def phase_int8(card, task, vol, truth, r_bf16, bf16_summary):
+    from pmpu_tpu_torch import VolumeEvaluator
+    from pmpu_tpu_torch.inference.fusion import normalize_slabs, view_slabs
+    from pmpu_tpu_torch.models import quantized as qz
+    from pmpu_tpu_torch.ops.cuda.fcomb_mean import fcomb_mean_decode
+    from pmpu_tpu_torch.ops.cuda.qconv import chain_reference, fused_qchain
+    from pmpu_tpu_torch.ops.cuda.slice_gather import gather_normalize_planes
+
+    print("phase 6: int8 path at full width (the same model and volume, quantize='int8', "
+          "self-calibrated)")
+    tmp = tempfile.TemporaryDirectory()  # removed at exit, also after a failure
+    path = os.path.join(tmp.name, "scales.json")
+    ev = VolumeEvaluator(task, n_samples=5, eval_batch=0, input_dtype="uint8",
+                         quantize="int8", calibration=path)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ev._maybe_quantize(sample_vol=vol)
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    require(os.path.exists(path), "int8: the scale file was not written")
+    print(f"  quantize + calibrate (48 slices) + write the scale file: {cal_s:.3f} s")
+    t0 = time.perf_counter()
+    ev.evaluate_volume(vol, truth)
+    torch.cuda.synchronize()
+    print(f"  warm-up volume {time.perf_counter() - t0:.2f} s")
+
+    for k in (fused_qchain, fcomb_mean_decode, gather_normalize_planes):
+        k.launches = 0
+    r = ev.evaluate_volume(vol, truth)
+    torch.cuda.synchronize()
+    launches = {"fused_qchain": fused_qchain.launches,
+                "fcomb_mean_decode": fcomb_mean_decode.launches,
+                "gather_normalize_planes": gather_normalize_planes.launches}
+    print(f"  launches in one int8 volume: {launches}")
+    require(all(n > 0 for n in launches.values()), f"a kernel was not on the int8 path: {launches}")
+    fused = r["fused"]
+    require(tuple(fused.shape) == (128, 128, 128, 3) and torch.isfinite(fused).all().item(),
+            "int8: fused probabilities not finite or of the wrong shape")
+    sum_err = (fused.sum(-1) - 1).abs().max().item()
+    require(sum_err <= 1e-4, f"int8: probabilities sum to 1 within {sum_err}")
+    require(r["dice"].shape == (4, 2) and np.isfinite(r["dice"]).all(), f"int8 dice {r['dice']}")
+    agree = float(np.mean(r["argmax"] == r_bf16["argmax"]))
+    print(f"  checks: finite, sum to 1 within {sum_err:.2g}; dice {np.round(r['dice'], 4).tolist()}"
+          f"; argmax agreement with the bf16 path {agree:.6f}")
+
+    ev2 = VolumeEvaluator(task, n_samples=5, eval_batch=0, input_dtype="uint8",
+                          quantize="int8", calibration=path)
+    r2 = ev2.evaluate_volume(vol, truth)
+    require(torch.equal(r2["fused"], fused), "int8: the reloaded scale file gives another volume")
+    print("  a fresh evaluator loading the scale file: fused volume bit-equal")
+
+    walls, spans = [], []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        ev.evaluate_volume(vol, truth)
+        end.record()
+        end.synchronize()
+        walls.append(time.perf_counter() - t0)
+        spans.append(start.elapsed_time(end))
+    stages = stage_ms(ev, vol, truth)
+    print(f"  [{card}] int8 wall s/volume {walls} (min {min(walls):.4f}); CUDA-event span "
+          f"ms/volume {[round(x, 3) for x in spans]}")
+    print(f"  [{card}] bf16 wall s/volume {bf16_summary['wall_s_per_volume']} (min "
+          f"{min(bf16_summary['wall_s_per_volume']):.4f}); CUDA-event span ms/volume "
+          f"{[round(x, 3) for x in bf16_summary['event_ms_per_volume']]}")
+    print(f"  [{card}] int8 device ms by stage: { {k: round(v, 3) for k, v in stages.items()} }")
+    print(f"  [{card}] bf16 device ms by stage: "
+          f"{ {k: round(v, 3) for k, v in bf16_summary['stage_ms'].items()} }")
+
+    # every conv-chain launch of the first chunk, on its real inputs
+    calls, orig = [], qz.fused_qchain
+
+    def record(x, layers, out_dtype, **kw):
+        out = orig(x, layers, out_dtype, **kw)
+        calls.append((x, layers, out_dtype, kw, out))
+        return out
+
+    qz.fused_qchain = record
+    try:
+        with torch.inference_mode():
+            slabs = normalize_slabs(view_slabs(ev._upload(vol).float()))
+            qz.probunet_features_prior_int8(ev._qvars, slabs[:128, ..., None], task.net,
+                                            dtype=task.net.dtype)
+    finally:
+        qz.fused_qchain = orig
+    rows, max_err = [], 0.0
+    with torch.inference_mode():
+        for x, layers, out_dtype, kw, out in calls:
+            want = chain_reference(x, layers, out_dtype, **kw)
+            torch.cuda.synchronize()
+            require(torch.equal(out, want), f"int8: a main-path chain launch ({tuple(x.shape)}) "
+                                            f"differs from its plain version")
+            max_err = max(max_err, (out.float() - want.float()).abs().max().item())
+            ms = event_ms(lambda: orig(x, layers, out_dtype, **kw), 10)
+            plain = event_ms(lambda: chain_reference(x, layers, out_dtype, **kw), 2)
+            ops, nbytes, th, h = chain_cost(x, layers, kw, out)
+            bound = max(ops / PEAK_INT8_OPS, nbytes / PEAK_HBM_BYTES) * 1e3
+            rows.append({"input": list(x.shape), "x2": kw.get("x2") is not None,
+                         "chans": [list(l["w"].shape[2:]) for l in layers],
+                         "out": str(out_dtype), "stripe_rows": th, "whole_image": th >= h,
+                         "ms": ms, "plain_ms": plain, "bound_ms": bound, "ops": ops,
+                         "bytes": nbytes, "tops": ops / ms / 1e9})
+    for row in rows:
+        form = "whole image" if row["whole_image"] else f"stripes of {row['stripe_rows']}"
+        print(f"  [{card}] chain {row['input']}{' +split' if row['x2'] else ''} {row['chans']} "
+              f"-> {row['out']}, {form}: "
+              f"{row['ms']:.3f} ms ({row['tops']:.1f} TOP/s), plain {row['plain_ms']:.2f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['ops']:.3g} ops, {row['bytes'] / 1e6:.1f} MB)")
+    for row in sorted(rows, key=lambda r_: (r_["ops"], r_["ms"]), reverse=True)[:2]:
+        print(f"  [{card}] largest chain {row['input']} {row['chans']}: {row['ms']:.3f} ms/launch, "
+              f"bound {row['bound_ms']:.4f} ms")
+    # yardstick: the float path's bf16 conv+BN+ReLU pair at the two largest
+    # chains' shapes (the 128² and 64² decoder DoubleConvs)
+    yard = {}
+    with torch.inference_mode():
+        for i in (3, 2):
+            dc = task.net.unet.up_blocks[i].conv
+            cin = dc.double_conv[0].in_channels
+            hw = 128 >> (3 - i)
+            xf = torch.randn((128, cin, hw, hw), device="cuda", dtype=torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+            yard[f"up{i} {hw}^2 {cin}->{cin // 2}->{cin // 2}"] = event_ms(lambda: dc(xf), 10)
+    print(f"  [{card}] yardstick, bf16 cuDNN DoubleConv (conv+BN+ReLU x2) ms: "
+          f"{ {k: round(v, 3) for k, v in yard.items()} }")
+    tmp.cleanup()
+    n_rows = len(rows)
+    ops_t = sum(r_["ops"] for r_ in rows) / PEAK_INT8_OPS
+    bytes_t = sum(r_["bytes"] for r_ in rows) / PEAK_HBM_BYTES
+    kernel = {"name": "fused_qchain", "route": "cuda",
+              "source": "pmpu_tpu_torch/ops/cuda/csrc/qconv.cu",
+              "replaces": "pmpu_tpu/ops/pallas/qconv.py:151",
+              "launches": launches["fused_qchain"], "max_abs_err": max_err,
+              "ms": sum(r_["ms"] for r_ in rows) / n_rows,
+              "plain_ms": sum(r_["plain_ms"] for r_ in rows) / n_rows,
+              "bound_ms": sum(r_["bound_ms"] for r_ in rows) / n_rows,
+              "bound_by": "operations" if ops_t > bytes_t else "bytes", "library_ms": None}
+    summary = {"calibration_s": cal_s, "launches": launches, "wall_s_per_volume": walls,
+               "event_ms_per_volume": spans, "stage_ms": stages, "dice": r["dice"].tolist(),
+               "argmax_agreement_with_bf16": agree, "chains": rows, "yardstick_bf16_ms": yard}
+    return kernel, summary
 
 
 def main() -> int:
@@ -361,9 +621,12 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     errs = phase_kernels()
+    phase_qconv()
     phase_parity()
-    kernels, summary = phase_full(card)
+    kernels, summary, (task, vol, truth, r_bf16) = phase_full(card)
     summary["phase3_max_abs_err"] = errs
+    kernel, summary["int8"] = phase_int8(card, task, vol, truth, r_bf16, summary)
+    kernels.append(kernel)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:

@@ -18,13 +18,16 @@ from JAX's: parity with the JAX package is held with ``mean_z=True``.
 
 from __future__ import annotations
 
+import json
 import logging
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 
 from pmpu_tpu_torch.device import resolve_device
+from pmpu_tpu_torch.models import quantized as qz
 from pmpu_tpu_torch.inference.fusion import (
     fuse_mean,
     normalize_slabs,
@@ -94,6 +97,14 @@ class VolumeEvaluator:
               ships 8-bit fixed point scaled by the per-volume max; the
               per-slice max normalization cancels the scale. A volume with
               signed or non-finite voxels ships bf16 instead.
+      quantize: None | "int8" — post-training int8 inference
+              (``pmpu_tpu_torch.models.quantized``): BN-folded int8 convs of
+              the U-Net and the prior tower on the conv-chain kernel; the
+              transposed convs, heads and the fcomb stay in the compute dtype
+      calibration: JSON file of the int8 static scales (the JAX package's
+              format): loaded if it exists, else written (atomically) after
+              self-calibration on the first volume; an unreadable file is
+              recalibrated and replaced. Only meaningful with "int8".
       device: None means "cuda"; raises without a CUDA device unless "cpu"
     """
 
@@ -104,6 +115,8 @@ class VolumeEvaluator:
         eval_batch: int = 0,
         mean_z: bool = False,
         input_dtype: Optional[str] = None,
+        quantize: Optional[str] = None,
+        calibration: Optional[str] = None,
         device=None,
     ):
         self.device = resolve_device(device)
@@ -120,6 +133,14 @@ class VolumeEvaluator:
             raise ValueError("input_dtype must be 'float32', 'bfloat16' or 'uint8', "
                              f"got {input_dtype!r}")
         self.input_dtype = input_dtype
+        if quantize not in (None, "int8"):
+            raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
+        self.quantize = quantize
+        self.calibration = calibration
+        self._cal_rewrite = False  # an unreadable file needs replacing
+        self._qvars = None         # the int8 tree, cached by the weights' identity
+        self._qvars_src = None
+        self._qvars_calibrated = False
         self._pack_classes = max(task.n_classes, 2) <= 4
 
     # ------------------------------------------------------------------
@@ -165,27 +186,95 @@ class VolumeEvaluator:
         return self._to_device(np.ascontiguousarray(arr))
 
     # ------------------------------------------------------------------
+    def _weights_identity(self):
+        """Identity of the network's weights: storage and version counter of
+        every tensor (a reload copies in place and bumps the version)."""
+        return tuple((t.data_ptr(), t._version) for t in self.task.net.state_dict().values())
+
+    def _maybe_quantize(self, sample_vol=None):
+        """The int8 eval tree (counterpart of JAX ``engine.py:305-386``):
+        quantized once per set of weights; its static scales loaded from
+        ``calibration`` when that file exists and is readable, else baked
+        from ``sample_vol``'s normalized slices (48 spread across the views)
+        and written to ``calibration`` atomically (tmp + rename)."""
+        net = self.task.net
+        ident = self._weights_identity()
+        if self._qvars_src != ident:
+            if self.task.is_probabilistic:
+                self._qvars = qz.quantize_probunet(net)
+            else:
+                self._qvars = qz.quantize_unet(net)
+            self._qvars_src = ident
+            self._qvars_calibrated = False
+            if self.calibration and os.path.exists(self.calibration):
+                try:
+                    with open(self.calibration) as f:
+                        d = json.load(f)
+                except (json.JSONDecodeError, OSError) as e:
+                    logging.warning("calibration file %s unreadable (%s); recalibrating",
+                                    self.calibration, e)
+                    self._cal_rewrite = True
+                else:  # an architecture mismatch raises: the file is another model's
+                    qz.import_scales(self._qvars, d, net.num_filters,
+                                     self.task.is_probabilistic)
+                    self._qvars_calibrated = True
+        if sample_vol is not None and not self._qvars_calibrated:
+            self._self_calibrate(sample_vol)
+        return self._qvars
+
+    def _self_calibrate(self, sample_vol):
+        net = self.task.net
+        cd = net.dtype or torch.float32
+        v = sample_vol if isinstance(sample_vol, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(np.asarray(sample_vol, np.float32)))
+        slabs = normalize_slabs(view_slabs(v.to(self.device, torch.float32)))
+        n = min(48, slabs.shape[0])  # spread across views and positions
+        idx = torch.linspace(0, slabs.shape[0] - 1, n).long().to(self.device)
+        x = slabs[idx][..., None]
+        if self.task.is_probabilistic:
+            qz.calibrate_probunet(self._qvars, x, net, dtype=cd)
+        else:
+            qz.calibrate_unet(self._qvars, x, net.num_filters, self.task.n_classes, dtype=cd)
+        self._qvars_calibrated = True
+        if self.calibration and (self._cal_rewrite or not os.path.exists(self.calibration)):
+            # a kill mid-write or a concurrent reader never sees a torn file
+            tmp = self.calibration + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(qz.export_scales(self._qvars, net.num_filters,
+                                           self.task.is_probabilistic), f)
+            os.replace(tmp, self.calibration)
+            self._cal_rewrite = False
+            logging.info("saved int8 calibration scales to %s", self.calibration)
+
     def _model_logits(self, x, generator=None, per_sample: bool = False):
         """(N,H,W,1) slices → (N,H,W,C) f32 logits, or (n_samples,N,H,W,C)
         with ``per_sample``. The backbone and the prior run once; only the
         fcomb decode is per sample. The mean path is the fcomb mean-decode
-        kernel (its plain version on the CPU)."""
+        kernel (its plain version on the CPU). With ``quantize="int8"`` the
+        backbone and the prior run int8-resident on the conv-chain kernel."""
         net = self.task.net
+        cd = net.dtype or torch.float32
         if not self.task.is_probabilistic:
-            out = net(x)
+            if self.quantize:
+                out = qz.unet_int8(self._qvars, x, net.num_filters, self.task.n_classes,
+                                   dtype=cd)
+            else:
+                out = net(x)
             return out[None] if per_sample else out
-        out = net(x)
-        loc = out.prior.loc
+        if self.quantize:
+            feats, loc, scale = qz.probunet_features_prior_int8(self._qvars, x, net, dtype=cd)
+        else:
+            out = net(x)
+            feats, loc, scale = out.unet_features, out.prior.loc, out.prior.scale
         if self.mean_z:
             zs = loc[None]
         else:
             eps = torch.randn((self.n_samples,) + tuple(loc.shape), generator=generator,
                               device=loc.device, dtype=loc.dtype)
-            zs = loc[None] + out.prior.scale[None] * eps  # (n_samples, N, latent)
+            zs = loc[None] + scale[None] * eps  # (n_samples, N, latent)
         if per_sample:
-            return net.decode_samples(out.unet_features, zs)
-        return fcomb_mean_decode(out.unet_features, zs, net.fcomb_params(),
-                                 net.no_convs_fcomb, net.dtype)
+            return net.decode_samples(feats, zs)
+        return fcomb_mean_decode(feats, zs, net.fcomb_params(), net.no_convs_fcomb, net.dtype)
 
     def _chunked_logits(self, slabs: torch.Tensor, seed: int) -> torch.Tensor:
         total, h, w = slabs.shape
@@ -238,6 +327,8 @@ class VolumeEvaluator:
         (host f32, fetched 2-bit packed when the classes fit), 'views' (the
         three per-view volumes) when ``return_views``, and 'dice' (host
         (4, C-1)) when a truth volume is given."""
+        if self.quantize:
+            self._maybe_quantize(sample_vol=img_vol)
         outs = self._predict_volume(self._upload(img_vol), seed)
         fused = outs[-1]
         seg = torch.argmax(fused, dim=-1).to(torch.uint8)
