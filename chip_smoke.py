@@ -7,7 +7,7 @@ Phases, each printing at least one line; any failure exits non-zero:
 
 1. device  — refuse to run without CUDA; print the card's name and power
              limit (nvidia-smi).
-2. build   — compile the three CUDA sources with nvcc for sm_90a (in
+2. build   — compile the four CUDA sources with nvcc for sm_90a (in
              parallel).
 3. kernels — each kernel against its plain PyTorch version on the card:
              fcomb mean-decode at (N=16, 128², Cf=f0=64, latent 6, C=3,
@@ -15,11 +15,15 @@ Phases, each printing at least one line; any failure exits non-zero:
              with repeated ids, an all-zero plane and labels (bit-exact);
              the int8 conv chain, bit-exact, in both launch forms (row
              stripes and the whole image), L = 1, 2, 3, 3×3 and 1×1,
-             Cin = 1, odd H and W, f32/bf16/int8 in and out, split input.
+             Cin = 1, odd H and W, f32/bf16/int8 in and out, split input;
+             the oblique-plane kernel, bit-exact, at S = 16 and 17 with 1, 5
+             and 6 views (the x-axis basis, a tilted one whose outer planes
+             leave the cube, the golden-spiral views).
 4. parity  — the whole path (probunet, filters 8,16, 32³, mean_z, f32, TF32
              off) on the card against the same weights on the CPU; then the
              same for the int8 path (``quantize="int8"``), the CPU run's
-             scale file loaded on the card.
+             scale file loaded on the card, and for the 6-view oblique path
+             (``num_views=6``).
 5. full    — the main path at full width: probunet 64..1024, latent 6,
              3 classes, fcomb depth 4, bf16, 5 samples, 3 chunks of 128
              slices, one seeded 128³ volume on the uint8 wire, through
@@ -34,6 +38,13 @@ Phases, each printing at least one line; any failure exits non-zero:
              every conv-chain launch of one chunk replayed against the plain
              version (bit-exact) and timed beside its bound. The kernels
              line's conv-chain entry averages those launches.
+7. oblique — the same model, weights and volume through the 6-view oblique
+             path (``num_views=6``): launch counts (one oblique-plane launch
+             a volume), probabilities summing to 1 where every view covers
+             the voxel, timings and stage times; the kernel at 128³ × 6
+             views against its plain version (bit-exact) and against
+             ``grid_sample`` (the library call computing the same
+             function); ``ged_volume`` with 4 draws, its value and time.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--json PATH`` also writes
@@ -150,6 +161,34 @@ def phase_kernels():
     return errs
 
 
+def phase_oblique_kernel():
+    """The oblique-plane kernel against its plain version, bit for bit."""
+    from pmpu_tpu_torch.data.sampler import view_basis
+    from pmpu_tpu_torch.inference.fusion import make_view_bases
+    from pmpu_tpu_torch.ops.cuda.oblique_gather import oblique_planes, oblique_planes_reference
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    bases = {"x-axis": view_basis([1.0, 0.0, 0.0])[None],
+             "tilted": view_basis([0.3, 0.5, 0.81])[None],
+             "5 views": make_view_bases(5), "6 views": make_view_bases(6)}
+    for s in (16, 17):
+        vol = torch.rand((s, s, s), generator=g, device="cuda") + 0.5  # no voxel is 0
+        for label, b in bases.items():
+            b = torch.from_numpy(b).cuda()
+            got = oblique_planes(vol, b)
+            want = oblique_planes_reference(vol, b)
+            torch.cuda.synchronize()
+            require(got.shape == (b.shape[0] * s, s, s) and torch.equal(got, want),
+                    f"oblique S={s} {label}: kernel differs from its plain version "
+                    f"({int((got != want).sum())} of {got.numel()} values)")
+            if label == "x-axis":
+                require(torch.equal(got, vol), f"oblique S={s}: x-axis planes are not the slices")
+            elif label == "tilted":
+                require(bool((got[0] == 0).any()) and bool((got[0] != 0).any()),
+                        f"oblique S={s}: the tilted outer plane does not leave the cube")
+    print(f"  oblique planes: S = 16 and 17 x {list(bases)}: bit-exact")
+
+
 def _cuda_chain(seed, shapes, kernel=3):
     from pmpu_tpu_torch.ops.cuda.qconv import make_random_chain
 
@@ -245,6 +284,34 @@ def phase_parity():
     require(mism == 0, f"int8 parity: {mism} argmax mismatches")
     require(np.array_equal(gpu["dice"], cpu["dice"]), "int8 parity: Dice tables differ")
 
+    from pmpu_tpu_torch.ops.cuda.oblique_gather import oblique_planes
+
+    print("phase 4: 6-view oblique path on the card vs the CPU (same model, mean_z, f32)")
+    for device in ("cuda", "cpu"):
+        task = make_task("probunet", num_filters=(8, 16), device=device, seed=5)
+        oblique_planes.launches = 0
+        out[device] = VolumeEvaluator(task, mean_z=True, num_views=6,
+                                      device=device).evaluate_volume(vol, truth)
+        if device == "cuda":
+            require(oblique_planes.launches == 1,
+                    f"6-view parity: {oblique_planes.launches} oblique-plane launches, not 1")
+    gpu, cpu = out["cuda"], out["cpu"]
+    diff = (gpu["fused"].cpu() - cpu["fused"]).abs().max().item()
+    mismatch = gpu["argmax"] != cpu["argmax"]
+    fused_cpu = cpu["fused"].numpy()
+    top2 = np.sort(fused_cpu, axis=-1)[..., -2:]
+    near_tie = (top2[..., 1] - top2[..., 0]) <= 1e-5
+    unexplained = int((mismatch & ~near_tie).sum())
+    dice_diff = float(np.abs(gpu["dice"] - cpu["dice"]).max())
+    print(f"  fused max |diff| {diff:.3g}, argmax mismatches {int(mismatch.sum())} (voxels whose "
+          f"top two CPU probabilities lie within 1e-5: {int(near_tie.sum())}, of them no view "
+          f"covers {int((fused_cpu.sum(-1) == 0).sum())}; mismatches outside them: "
+          f"{unexplained}), Dice max |diff| {dice_diff:.3g}, "
+          f"Dice {np.round(gpu['dice'], 4).tolist()}")
+    require(diff <= 1e-5, f"6-view parity: fused probabilities differ by {diff}")
+    require(unexplained == 0, f"6-view parity: {unexplained} argmax mismatches at clear maxima")
+    require(dice_diff <= 1e-4, f"6-view parity: Dice differs by {dice_diff}")
+
 
 def synthetic_volume(cube, seed):
     """A seeded image with two nested ellipsoids and its 3-class truth."""
@@ -261,9 +328,17 @@ def synthetic_volume(cube, seed):
 def stage_ms(ev, vol, truth):
     """Milliseconds between CUDA events around each stage of one volume,
     replaying ``evaluate_volume`` step by step (the int8 backbone and prior
-    when ``ev.quantize``)."""
+    when ``ev.quantize``; the oblique slab and the resample back to the grid
+    when ``ev.num_views != 3``)."""
     from pmpu_tpu_torch.inference.engine import _pack2bit, _unpack2bit, chunk_generator, eval_chunk_plan
-    from pmpu_tpu_torch.inference.fusion import fuse_mean, normalize_slabs, reassemble_views, view_slabs
+    from pmpu_tpu_torch.inference.fusion import (
+        fuse_mean,
+        normalize_slabs,
+        oblique_slabs,
+        reassemble_views,
+        resample_view_to_grid,
+        view_slabs,
+    )
     from pmpu_tpu_torch.models.quantized import probunet_features_prior_int8
     from pmpu_tpu_torch.ops.cuda.fcomb_mean import fcomb_mean_decode
 
@@ -287,8 +362,12 @@ def stage_ms(ev, vol, truth):
         mark("start")
         v = ev._upload(vol)
         mark("upload")
-        slabs = normalize_slabs(view_slabs(v.float()))
-        mark("slabs")
+        if ev.num_views == 3:
+            slabs = normalize_slabs(view_slabs(v.float()))
+            mark("slabs")
+        else:
+            slabs = normalize_slabs(oblique_slabs(v.float(), ev._bases))
+            mark("oblique slabs")
         b, nchunk = eval_chunk_plan(slabs.shape[0], *slabs.shape[1:], ev.eval_batch)
         logits = []
         for i in range(nchunk):
@@ -300,9 +379,19 @@ def stage_ms(ev, vol, truth):
             logits.append(fcomb_mean_decode(feats, zs, net.fcomb_params(),
                                              net.no_convs_fcomb, net.dtype))
             mark("fcomb")
-        views = reassemble_views(torch.softmax(torch.cat(logits), dim=-1))
-        fused = fuse_mean(views)
-        mark("softmax+fuse")
+        probs = torch.softmax(torch.cat(logits), dim=-1)
+        if ev.num_views == 3:
+            views = reassemble_views(probs)
+            fused = fuse_mean(views)
+            mark("softmax+fuse")
+        else:
+            mark("softmax")
+            s = v.shape[0]
+            views = [resample_view_to_grid(probs[i * s:(i + 1) * s], basis)
+                     for i, basis in enumerate(ev._bases)]
+            mark("splat back")
+            fused = fuse_mean(views)
+            mark("fuse")
         _unpack2bit(_pack2bit(torch.argmax(fused, dim=-1).to(torch.uint8)).cpu().numpy())
         mark("argmax+fetch")
         ev._dice_report(tuple(views) + (fused,), ev._upload_truth(truth)).cpu()
@@ -589,6 +678,142 @@ def phase_int8(card, task, vol, truth, r_bf16, bf16_summary):
     return kernel, summary
 
 
+def covered(bases, s):
+    """(S,S,S) bool: voxels that every view's planes cover, so that each
+    view's resample weights sum to 1 there (the resample of ones)."""
+    from pmpu_tpu_torch.inference.fusion import resample_view_to_grid
+
+    ones = torch.ones((s, s, s, 1), device=bases.device)
+    cover = torch.stack([resample_view_to_grid(ones, b)[..., 0] for b in bases])
+    return (cover >= 1 - 1e-5).all(0)
+
+
+def oblique_cost(s, v):
+    """(f32 operations, bytes) of one oblique-plane launch: per output 18
+    for the coordinates, 6 for the fractions and their complements, 16 for
+    the corner weights and 16 for the weighted sum; the volume read once,
+    the slab and the bases."""
+    outputs = v * s**3
+    return 56.0 * outputs, 4.0 * (outputs + s**3 + 9 * v)
+
+
+def phase_oblique(card, task, vol, truth):
+    import torch.nn.functional as F
+
+    from pmpu_tpu_torch import VolumeEvaluator
+    from pmpu_tpu_torch.data.sampler import plane_grid
+    from pmpu_tpu_torch.ops.cuda.fcomb_mean import fcomb_mean_decode
+    from pmpu_tpu_torch.ops.cuda.oblique_gather import oblique_planes, oblique_planes_reference
+    from pmpu_tpu_torch.ops.cuda.slice_gather import gather_normalize_planes
+
+    print("phase 7: 6-view oblique path at full width (the same model and volume, num_views=6)")
+    ev = VolumeEvaluator(task, n_samples=5, eval_batch=0, num_views=6, input_dtype="uint8")
+    t0 = time.perf_counter()
+    ev.evaluate_volume(vol, truth)
+    torch.cuda.synchronize()
+    print(f"  warm-up volume {time.perf_counter() - t0:.2f} s")
+
+    kernels = {"oblique_planes": oblique_planes, "gather_normalize_planes": gather_normalize_planes,
+               "fcomb_mean_decode": fcomb_mean_decode}
+    for k in kernels.values():
+        k.launches = 0
+    r = ev.evaluate_volume(vol, truth)
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    print(f"  launches in one 6-view volume: {launches}")
+    require(launches["oblique_planes"] == 1 and all(n > 0 for n in launches.values()),
+            f"6-view path: launches {launches}")
+
+    fused = r["fused"]
+    s = fused.shape[0]
+    require(tuple(fused.shape) == (128, 128, 128, 3), f"6-view fused shape {tuple(fused.shape)}")
+    require(torch.isfinite(fused).all().item(), "6-view fused probabilities not finite")
+    inside = covered(ev._bases, s)
+    sum_err = (fused.sum(-1) - 1)[inside].abs().max().item()
+    require(sum_err <= 1e-4, f"6-view: probabilities sum to 1 within {sum_err} where covered")
+    require(r["argmax"].min() >= 0 and r["argmax"].max() < 3, "6-view argmax out of [0,3)")
+    require(r["dice"].shape == (7, 2) and np.isfinite(r["dice"]).all(), f"6-view dice {r['dice']}")
+    print(f"  checks: finite, probabilities sum to 1 within {sum_err:.2g} on the "
+          f"{inside.float().mean().item():.4f} of voxels that all views cover, argmax in [0,3), "
+          f"dice (7,2) = {np.round(r['dice'], 4).tolist()}")
+
+    walls, spans = [], []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        ev.evaluate_volume(vol, truth)
+        end.record()
+        end.synchronize()
+        walls.append(time.perf_counter() - t0)
+        spans.append(start.elapsed_time(end))
+    stages = stage_ms(ev, vol, truth)
+    print(f"  [{card}] 6-view wall s/volume {walls} (min {min(walls):.4f}); CUDA-event span "
+          f"ms/volume {[round(x, 3) for x in spans]}")
+    print(f"  [{card}] 6-view device ms by stage: { {k: round(v, 3) for k, v in stages.items()} }")
+
+    # the kernel on the main path's input: the uint8-wire volume as f32
+    with torch.inference_mode():
+        v = ev._upload(vol).float()
+        got = oblique_planes(v, ev._bases)
+        want = oblique_planes_reference(v, ev._bases)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), "oblique planes differ from the plain version at 128³ x 6 "
+                                        f"({int((got != want).sum())} values)")
+        ms = event_ms(lambda: oblique_planes(v, ev._bases), 50)
+        plain_ms = event_ms(lambda: oblique_planes_reference(v, ev._bases), 2)
+        # the same function as one library call: grid_sample on voxel
+        # coordinates normalized for align_corners=True, (z, y, x) order
+        g = plane_grid(s, "cuda")
+        uu, vv = torch.meshgrid(g, g, indexing="ij")
+        c = (s - 1) / 2.0
+        coords = torch.cat([torch.stack([c + uu[..., None] * b[0] + vv[..., None] * b[1]
+                                         + off * b[2] for off in g]) for b in ev._bases])
+        grid = (coords.flip(-1) * (2.0 / (s - 1)) - 1.0)[None]
+        inp = v[None, None]
+
+        def library():
+            return F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros",
+                                 align_corners=True)
+
+        lib_err = (library()[0, 0] - got).abs().max().item()
+        lib_ms = event_ms(library, 20)
+    flops, nbytes = oblique_cost(s, ev._bases.shape[0])
+    bound = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+    print(f"  [{card}] oblique_planes (128³, 6 views, 768 planes): {ms:.4f} ms/launch, plain "
+          f"{plain_ms:.2f} ms, grid_sample {lib_ms:.4f} ms (max |diff| {lib_err:.2g}), bound "
+          f"{bound:.4f} ms ({flops:.3g} FLOP, {nbytes / 1e6:.1f} MB), "
+          f"{launches['oblique_planes']} launch/volume")
+
+    oblique_planes.launches = 0
+    ged_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ged = ev.ged_volume(vol, truth, n_ged_samples=4)
+        ged_s.append(time.perf_counter() - t0)
+    require(np.isfinite(ged) and -1.0 <= ged <= 2.0, f"GED {ged} outside [-1, 2]")
+    require(oblique_planes.launches == 2, f"GED: {oblique_planes.launches} oblique launches in 2 runs")
+    require(ev.n_samples == 5, "GED changed the evaluator's n_samples")
+    print(f"  [{card}] ged_volume, 4 draws, 6 views: {ged:.6f}; s per call {ged_s} "
+          f"(one oblique-plane launch a call)")
+    kernel = {"name": "oblique_planes", "route": "cuda",
+              "source": "pmpu_tpu_torch/ops/cuda/csrc/oblique_gather.cu",
+              "replaces": "pmpu_tpu/ops/pallas/oblique_gather.py:87",
+              "launches": launches["oblique_planes"],
+              "max_abs_err": (got - want).abs().max().item(),
+              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+              "bound_by": "operations" if flops / PEAK_F32_FLOPS > nbytes / PEAK_HBM_BYTES
+              else "bytes",
+              "library_ms": lib_ms}
+    summary = {"launches": launches, "wall_s_per_volume": walls, "event_ms_per_volume": spans,
+               "stage_ms": stages, "dice": r["dice"].tolist(), "sum_err_covered": sum_err,
+               "covered_share": inside.float().mean().item(), "grid_sample_max_abs_diff": lib_err,
+               "ged": ged, "ged_s": ged_s}
+    return kernel, summary
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write all measurements to this file")
@@ -622,10 +847,13 @@ def main() -> int:
 
     errs = phase_kernels()
     phase_qconv()
+    phase_oblique_kernel()
     phase_parity()
     kernels, summary, (task, vol, truth, r_bf16) = phase_full(card)
     summary["phase3_max_abs_err"] = errs
     kernel, summary["int8"] = phase_int8(card, task, vol, truth, r_bf16, summary)
+    kernels.append(kernel)
+    kernel, summary["oblique"] = phase_oblique(card, task, vol, truth)
     kernels.append(kernel)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)

@@ -10,8 +10,10 @@ device they raise unless the caller passes ``device="cpu"``, which runs
 the plain PyTorch versions of the hand-written kernels
 (``pmpu_tpu_torch.ops.cuda``).
 
-What is ported so far: whole-volume 3-view inference of the U-Net and the
-probabilistic U-Net (``inference.engine.VolumeEvaluator``).
+What is ported so far: whole-volume inference of the U-Net and the
+probabilistic U-Net on the 3 standard views or on k isotropic oblique
+views, in float and in int8, and the generalized energy distance of one
+volume (``inference.engine.VolumeEvaluator``).
 """
 
 from pmpu_tpu_torch.inference.engine import VolumeEvaluator

@@ -1,14 +1,17 @@
-"""Whole-volume 3-view inference (counterpart of
-``pmpu_tpu/inference/engine.py:47-115, 117-301, 388-592``).
+"""Whole-volume multi-view inference (counterpart of
+``pmpu_tpu/inference/engine.py:47-115, 117-301, 388-592, 844-879``).
 
 One volume's path:
 
-  volume (host) → upload (f32 / bf16 / uint8 wire, pinned) → 3 view
-  transposes → (3S,S,S) slab → per-slice max normalization (gather-
-  normalize kernel) → chunked batched model (U-Net backbone and prior run
-  once per chunk; probunet averages n prior draws through the fcomb
-  mean-decode kernel) → softmax → inverse-transpose reassembly → mean
-  fusion → argmax (2-bit packed to the host) and per-class Dice
+  volume (host) → upload (f32 / bf16 / uint8 wire, pinned) → view slab:
+  3 view transposes → (3S,S,S), or with ``num_views != 3`` all planes of
+  the isotropic oblique views in one oblique-plane kernel launch →
+  (V·S,S,S) → per-slice max normalization (gather-normalize kernel) →
+  chunked batched model (U-Net backbone and prior run once per chunk;
+  probunet averages n prior draws through the fcomb mean-decode kernel) →
+  softmax → back to the voxel grid (inverse transposes, or a trilinear
+  resample per oblique view) → mean fusion → argmax (2-bit packed to the
+  host) and per-class Dice
 
 The slice axis is a batch axis. PyTorch runs eagerly, so the chunk loop is
 a Python loop; chunk ``i`` draws its prior samples from a generator seeded
@@ -30,12 +33,15 @@ from pmpu_tpu_torch.device import resolve_device
 from pmpu_tpu_torch.models import quantized as qz
 from pmpu_tpu_torch.inference.fusion import (
     fuse_mean,
+    make_view_bases,
     normalize_slabs,
+    oblique_slabs,
     reassemble_views,
+    resample_view_to_grid,
     view_slabs,
 )
 from pmpu_tpu_torch.ops.cuda.fcomb_mean import fcomb_mean_decode
-from pmpu_tpu_torch.ops.metrics import volume_per_class_dice
+from pmpu_tpu_torch.ops.metrics import generalized_energy_distance, volume_per_class_dice
 
 
 def auto_eval_batch(total: int, h: int, w: int) -> int:
@@ -83,13 +89,16 @@ def chunk_generator(device: torch.device, seed: int, i: int) -> torch.Generator:
 
 
 class VolumeEvaluator:
-    """Batched whole-volume evaluator for one task (3 standard views).
+    """Batched whole-volume evaluator for one task.
 
     Args:
       task: ``UNetTask`` | ``ProbUNetTask`` (``pmpu_tpu_torch.train.tasks``),
             its network already on ``device``
       n_samples: prior draws per slice for the probabilistic model
-      eval_batch: slices per model call; 0 = auto, < 0 = the whole 3S slab
+      eval_batch: slices per model call; 0 = auto, < 0 = the whole slab
+      num_views: 3 = the standard views (the reference's path); else that
+              many isotropic oblique views (golden-spiral axes), sampled by
+              the oblique-plane kernel and resampled back trilinearly
       mean_z: decode the prior mean instead of sampling (deterministic; the
               parity mode; all draws collapse to one decode)
       input_dtype: host → device wire: None (bf16 when the model computes
@@ -113,6 +122,7 @@ class VolumeEvaluator:
         task,
         n_samples: int = 5,
         eval_batch: int = 0,
+        num_views: int = 3,
         mean_z: bool = False,
         input_dtype: Optional[str] = None,
         quantize: Optional[str] = None,
@@ -127,6 +137,11 @@ class VolumeEvaluator:
         self.n_samples = 1 if mean_z else n_samples
         self.mean_z = mean_z
         self.eval_batch = eval_batch
+        if num_views < 1:
+            raise ValueError(f"num_views must be at least 1, got {num_views}")
+        self.num_views = num_views
+        self._bases = None if num_views == 3 else torch.from_numpy(
+            make_view_bases(num_views)).to(self.device)
         if input_dtype is None:
             input_dtype = "bfloat16" if task.net.dtype == torch.bfloat16 else "float32"
         if input_dtype not in ("float32", "bfloat16", "uint8"):
@@ -142,6 +157,7 @@ class VolumeEvaluator:
         self._qvars_src = None
         self._qvars_calibrated = False
         self._pack_classes = max(task.n_classes, 2) <= 4
+        self._ged_evaluators = {}  # n_ged_samples → per-sample evaluator
 
     # ------------------------------------------------------------------
     def _to_device(self, x) -> torch.Tensor:
@@ -223,6 +239,8 @@ class VolumeEvaluator:
         return self._qvars
 
     def _self_calibrate(self, sample_vol):
+        """Bake the static scales from the 3 standard views' slices, whatever
+        ``num_views`` is (as the JAX package does)."""
         net = self.task.net
         cd = net.dtype or torch.float32
         v = sample_vol if isinstance(sample_vol, torch.Tensor) else torch.from_numpy(
@@ -276,7 +294,10 @@ class VolumeEvaluator:
             return net.decode_samples(feats, zs)
         return fcomb_mean_decode(feats, zs, net.fcomb_params(), net.no_convs_fcomb, net.dtype)
 
-    def _chunked_logits(self, slabs: torch.Tensor, seed: int) -> torch.Tensor:
+    def _chunked_logits(self, slabs: torch.Tensor, seed: int,
+                        per_sample: bool = False) -> torch.Tensor:
+        """(total,H,W) slab → (total,H,W,C) logits, or (n_samples,total,H,W,C)
+        with ``per_sample``."""
         total, h, w = slabs.shape
         b, nchunk = eval_chunk_plan(total, h, w, self.eval_batch)
         pad = nchunk * b - total
@@ -284,14 +305,17 @@ class VolumeEvaluator:
             slabs = torch.cat([slabs, slabs.new_zeros((pad, h, w))])
         x = slabs[..., None]
         sampled = self.task.is_probabilistic and not self.mean_z
+        ax = 1 if per_sample else 0  # the slice axis of the logits
         logits = None
         for i in range(nchunk):
             gen = chunk_generator(self.device, seed, i) if sampled else None
-            li = self._model_logits(x[i * b : (i + 1) * b], gen)
+            li = self._model_logits(x[i * b : (i + 1) * b], gen, per_sample)
             if logits is None:
-                logits = li.new_empty((nchunk * b,) + tuple(li.shape[1:]))
-            logits[i * b : (i + 1) * b] = li
-        return logits[:total]
+                shape = list(li.shape)
+                shape[ax] = nchunk * b
+                logits = li.new_empty(shape)
+            logits.narrow(ax, i * b, b).copy_(li)
+        return logits.narrow(ax, 0, total)
 
     def _to_probs(self, outputs: torch.Tensor) -> torch.Tensor:
         """Multi-class: softmax. Binary: the UNet already emits sigmoid
@@ -302,17 +326,30 @@ class VolumeEvaluator:
             return torch.cat([1.0 - p, p], dim=-1)
         return torch.softmax(outputs, dim=-1)
 
-    def _predict_volume(self, vol: torch.Tensor, seed: int = 0):
-        """(S,S,S) image volume on the device → three per-view class volumes
-        and their mean fusion, each (S,S,S,C) f32."""
-        slabs = normalize_slabs(view_slabs(vol.float()))
-        probs = self._to_probs(self._chunked_logits(slabs, seed))
-        views = reassemble_views(probs)
+    def _predict_volume(self, vol: torch.Tensor, seed: int = 0, per_sample: bool = False):
+        """(S,S,S) image volume on the device → the per-view class volumes
+        and their mean fusion, each (S,S,S,C) f32. With ``per_sample`` each
+        carries a leading n_samples axis: one fused volume per prior draw
+        from one model pass (the GED path)."""
+        vol = vol.float()
+        slabs = view_slabs(vol) if self._bases is None else oblique_slabs(vol, self._bases)
+        probs = self._to_probs(self._chunked_logits(normalize_slabs(slabs), seed, per_sample))
+        if self._bases is None:
+            views = reassemble_views(probs)
+        else:
+            s = vol.shape[0]
+            views = []
+            for i, basis in enumerate(self._bases):
+                pv = probs[..., i * s : (i + 1) * s, :, :, :]
+                if per_sample:
+                    views.append(torch.stack([resample_view_to_grid(p, basis) for p in pv]))
+                else:
+                    views.append(resample_view_to_grid(pv, basis))
         return tuple(views) + (fuse_mean(views),)
 
     def _dice_report(self, volumes, truth) -> torch.Tensor:
         """Per-class (1..C-1) Dice of each view volume and the fusion:
-        (4, C-1)."""
+        (num_views+1, C-1)."""
         n_classes = volumes[0].shape[-1]
         return torch.stack([
             torch.stack([volume_per_class_dice(v, truth, c) for c in range(1, n_classes)])
@@ -325,8 +362,8 @@ class VolumeEvaluator:
                         return_views: bool = True) -> dict:
         """Run one volume. Returns 'fused' probs (device tensor), 'argmax'
         (host f32, fetched 2-bit packed when the classes fit), 'views' (the
-        three per-view volumes) when ``return_views``, and 'dice' (host
-        (4, C-1)) when a truth volume is given."""
+        num_views per-view volumes) when ``return_views``, and 'dice' (host
+        (num_views+1, C-1)) when a truth volume is given."""
         if self.quantize:
             self._maybe_quantize(sample_vol=img_vol)
         outs = self._predict_volume(self._upload(img_vol), seed)
@@ -342,3 +379,29 @@ class VolumeEvaluator:
         if truth_vol is not None:
             result["dice"] = self._dice_report(outs, self._upload_truth(truth_vol)).cpu().numpy()
         return result
+
+    @torch.inference_mode()
+    def ged_volume(self, img_vol, truth_vol, n_ged_samples: int = 4, seed: int = 0) -> float:
+        """Generalized energy distance between ``n_ged_samples`` whole-volume
+        segmentations and the one truth volume. Each sample is the argmax of
+        the fused views decoded from its own prior draw; all draws share one
+        model pass (the backbone and the prior run once per chunk, only the
+        fcomb decode fans out). The draws come from an evaluator kept per
+        ``n_ged_samples`` with this one's ``num_views``, ``eval_batch`` and
+        ``quantize``; ``n_samples`` of this evaluator is left as it was."""
+        ev = self._ged_evaluators.get(n_ged_samples)
+        if ev is None:
+            ev = self if n_ged_samples == self.n_samples else VolumeEvaluator(
+                self.task, n_samples=n_ged_samples, eval_batch=self.eval_batch,
+                num_views=self.num_views, quantize=self.quantize, device=self.device)
+            self._ged_evaluators[n_ged_samples] = ev
+        if self.quantize:
+            ev._qvars = self._maybe_quantize()
+        if isinstance(img_vol, torch.Tensor):
+            vol = img_vol.to(self.device, torch.float32)
+        else:
+            vol = self._to_device(np.ascontiguousarray(img_vol, dtype=np.float32))
+        samples = torch.argmax(ev._predict_volume(vol, seed, per_sample=True)[-1], dim=-1)
+        truths = torch.as_tensor(truth_vol, device=self.device)[None]
+        n_classes = max(self.task.n_classes, 2)
+        return float(generalized_energy_distance(samples, truths, n_classes))

@@ -65,19 +65,21 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
         VolumeEvaluator(port_task())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         VolumeEvaluator(port_task(), quantize="int8")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VolumeEvaluator(port_task(), num_views=6)
     with pytest.raises(ValueError, match="device must be"):
         VolumeEvaluator(port_task(), device="meta")
 
 
 def test_kernel_modules_build_and_load_nothing_on_cpu():
     """Importing the kernel modules and running every wrapper on CPU
-    tensors (their plain versions), the int8 path included, starts no nvcc
-    and loads no library."""
+    tensors (their plain versions), the int8 and the 6-view paths included,
+    starts no nvcc and loads no library."""
     code = (
         "import subprocess, torch\n"
         "def no_nvcc(*a, **k): raise AssertionError('nvcc started')\n"
         "subprocess.Popen = no_nvcc\n"
-        "from pmpu_tpu_torch.ops.cuda import _build, fcomb_mean, qconv, slice_gather\n"
+        "from pmpu_tpu_torch.ops.cuda import _build, fcomb_mean, oblique_gather, qconv, slice_gather\n"
         "from pmpu_tpu_torch import VolumeEvaluator\n"
         "from pmpu_tpu_torch.train.tasks import make_task\n"
         "task = make_task('probunet', num_filters=(4, 8), device='cpu')\n"
@@ -85,11 +87,15 @@ def test_kernel_modules_build_and_load_nothing_on_cpu():
         "                             task.net.fcomb_params())\n"
         "slice_gather.gather_normalize_planes(torch.rand(3, 4, 4), torch.arange(3))\n"
         "qconv.fused_qchain(torch.rand(1, 5, 5, 4), qconv.make_random_chain(0, [(4, 8)]))\n"
+        "oblique_gather.oblique_planes(torch.rand(5, 5, 5), torch.eye(3)[None])\n"
         "VolumeEvaluator(task, quantize='int8', eval_batch=8, device='cpu')"
+        ".evaluate_volume(torch.rand(8, 8, 8).numpy())\n"
+        "VolumeEvaluator(task, num_views=6, eval_batch=16, device='cpu')"
         ".evaluate_volume(torch.rand(8, 8, 8).numpy())\n"
         "print(_build.library.cache_info().currsize,\n"
         "      fcomb_mean.fcomb_mean_decode.launches,\n"
         "      slice_gather.gather_normalize_planes.launches,\n"
-        "      qconv.fused_qchain.launches)\n"
+        "      qconv.fused_qchain.launches,\n"
+        "      oblique_gather.oblique_planes.launches)\n"
     )
-    assert _run(code).split() == ["0", "0", "0", "0"]
+    assert _run(code).split() == ["0", "0", "0", "0", "0"]
