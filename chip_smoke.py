@@ -11,7 +11,11 @@ Phases, each printing at least one line; any failure exits non-zero:
              parallel).
 3. kernels — each kernel against its plain PyTorch version on the card:
              fcomb mean-decode at (N=16, 128², Cf=f0=64, latent 6, C=3,
-             S=5) in f32 and bf16 plus two small odd cases; gather-normalize
+             S=5) in f32 and bf16 plus three small odd cases, then bf16 across
+             the tensor-core route (f0 = 16, 32, 128; S = 1 and 8; N=5 at 37²;
+             one NaN pixel, NaN at exactly that pixel in both versions) and
+             f0 = 136 on the CUDA-core route, each printing its route;
+             gather-normalize
              with repeated ids, an all-zero plane and labels (bit-exact);
              the int8 conv chain, bit-exact, in both launch forms (row
              stripes and the whole image), L = 1, 2, 3, 3×3 and 1×1,
@@ -28,8 +32,10 @@ Phases, each printing at least one line; any failure exits non-zero:
              3 classes, fcomb depth 4, bf16, 5 samples, 3 chunks of 128
              slices, one seeded 128³ volume on the uint8 wire, through
              ``make_task`` and ``VolumeEvaluator.evaluate_volume``; launch
-             counts of the main path; timings; each kernel at the main
-             path's shapes against its plain version.
+             counts of the main path (every fcomb launch on the tensor-core
+             route, as in phases 6 and 7); timings; each kernel at the main
+             path's shapes against its plain version, fcomb also on its f32
+             (CUDA-core) route, with its TFLOP/s and share of the bound.
 6. int8    — the same volume and weights through the int8 path
              (``quantize="int8"``, self-calibrated, scale file in a
              temporary directory): calibration time, launch counts, a fresh
@@ -108,12 +114,50 @@ def fcomb_case(n, hw, f0, latent, c, s, ncf, dtype, seed):
     return feats, zs, params
 
 
-def compare_fcomb(feats, zs, params, ncf, dtype, label):
-    from pmpu_tpu_torch.ops.cuda.fcomb_mean import fcomb_mean_decode, fcomb_mean_decode_reference
+def reset_fcomb_counts():
+    from pmpu_tpu_torch.ops.cuda.fcomb_mean import ROUTES, fcomb_mean_decode
 
+    fcomb_mean_decode.launches = 0
+    fcomb_mean_decode.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+def require_fcomb_route(n, where):
+    """Every fcomb launch since the last reset (``n`` of them) took the
+    tensor-core route."""
+    from pmpu_tpu_torch.ops.cuda.fcomb_mean import fcomb_mean_decode
+
+    by_route = dict(fcomb_mean_decode.launches_by_route)
+    print(f"  fcomb launches by route in one {where} volume: {by_route}")
+    require(by_route == {"tensor_core": n, "cuda_core": 0},
+            f"{where}: fcomb launches by route {by_route}, not {n} on the tensor cores")
+
+
+def compare_fcomb(feats, zs, params, ncf, dtype, label, nan_pixel=None):
+    """The kernel against its plain version on the same inputs; with
+    ``nan_pixel`` (an (n, y, x) index whose features hold a NaN) both must
+    be NaN at exactly that pixel and agree everywhere else."""
+    from pmpu_tpu_torch.ops.cuda.fcomb_mean import (
+        fcomb_mean_decode,
+        fcomb_mean_decode_reference,
+        fcomb_route,
+    )
+
+    route = fcomb_route(feats.shape[-1], params["layers.0.weight"].shape[0],
+                        params["last_layer.weight"].shape[0], dtype)
+    before = fcomb_mean_decode.launches_by_route[route]
     got = fcomb_mean_decode(feats, zs, params, ncf, dtype)
+    require(fcomb_mean_decode.launches_by_route[route] == before + 1,
+            f"fcomb {label}: the launch did not take the {route} route")
     want = fcomb_mean_decode_reference(feats, zs, params, ncf, dtype)
     torch.cuda.synchronize()
+    poisoned = torch.zeros(got.shape[:-1], dtype=torch.bool, device=got.device)
+    if nan_pixel is not None:
+        poisoned[nan_pixel] = True
+        for name, x in (("kernel", got), ("plain version", want)):
+            require(torch.equal(torch.isnan(x).all(-1), poisoned)
+                    and torch.equal(torch.isnan(x).any(-1), poisoned),
+                    f"fcomb {label}: the {name} is not NaN at exactly the poisoned pixel")
+    got, want = got[~poisoned], want[~poisoned]
     err = (got - want).abs().max().item()
     scale = max(want.abs().max().item(), 1.0)
     if dtype == torch.float32:
@@ -122,8 +166,9 @@ def compare_fcomb(feats, zs, params, ncf, dtype, label):
     else:
         tol = 4 * bf16_ulp(scale)
         agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item() if got.shape[-1] > 1 else 1.0
-    print(f"  fcomb {label}: max_abs_err {err:.3g} (tol {tol:.3g}, scale {scale:.3g}), "
-          f"argmax agreement {agree:.6f}")
+    print(f"  fcomb {label} [{route}]: max_abs_err {err:.3g} (tol {tol:.3g}, scale {scale:.3g}), "
+          f"argmax agreement {agree:.6f}" + (", NaN at exactly the poisoned pixel"
+                                             if nan_pixel is not None else ""))
     require(torch.isfinite(got).all().item(), f"fcomb {label}: non-finite output")
     require(err <= tol, f"fcomb {label}: error {err} above {tol}")
     require(agree >= 0.999, f"fcomb {label}: argmax agreement {agree} below 0.999")
@@ -145,6 +190,17 @@ def phase_kernels():
                              (3, 1, 3, torch.bfloat16)):
         feats, zs, params = fcomb_case(3, 13, 8, 3, c, s, ncf, dtype, seed=2)
         compare_fcomb(feats, zs, params, ncf, dtype, f"f0=8 C={c} S={s} ncf={ncf} {dtype}")
+    # bf16: the tensor-core route across its range (f0 = Cf = 16, 32, 128),
+    # S = 1 and 8, a ragged last tile (N=5, 37²), then f0 = 136, past the
+    # range, on the CUDA-core route
+    for n, hw, f0, s in ((4, 32, 16, 5), (4, 32, 32, 5), (4, 64, 128, 5), (4, 32, 64, 1),
+                         (4, 32, 64, 8), (5, 37, 64, 5), (2, 16, 136, 5)):
+        feats, zs, params = fcomb_case(n, hw, f0, 6, 3, s, 4, torch.bfloat16, seed=10 + f0 + s)
+        compare_fcomb(feats, zs, params, 4, torch.bfloat16, f"N={n} {hw}² f0={f0} S={s} bf16")
+    feats, zs, params = fcomb_case(2, 32, 64, 6, 3, 5, 4, torch.bfloat16, seed=4)
+    feats[1, 5, 7, 3] = float("nan")
+    compare_fcomb(feats, zs, params, 4, torch.bfloat16, "N=2 32² f0=64 one NaN pixel bf16",
+                  nan_pixel=(1, 5, 7))
     g = torch.Generator(device="cuda").manual_seed(3)
     img = torch.rand((40, 128, 128), generator=g, device="cuda") * 50
     img[7] = 0.0
@@ -425,7 +481,7 @@ def phase_full(card):
     torch.cuda.synchronize()
     print(f"  warm-up volume {time.perf_counter() - t0:.2f} s")
 
-    fcomb_mean_decode.launches = 0
+    reset_fcomb_counts()
     gather_normalize_planes.launches = 0
     torch.cuda.reset_peak_memory_stats()
     r = ev.evaluate_volume(vol, truth)
@@ -434,6 +490,7 @@ def phase_full(card):
                 "gather_normalize_planes": gather_normalize_planes.launches}
     print(f"  launches in one volume: {launches}")
     require(all(n > 0 for n in launches.values()), f"a kernel was not on the main path: {launches}")
+    require_fcomb_route(3, "3-view bf16")
 
     fused = r["fused"]
     require(tuple(fused.shape) == (128, 128, 128, 3), f"fused shape {tuple(fused.shape)}")
@@ -483,17 +540,24 @@ def phase_full(card):
         params = task.net.fcomb_params()
         feats = out.unet_features
         fcomb_err = compare_fcomb(feats, zs, params, 4, torch.bfloat16, "one real chunk N=128")
-        fcomb_ms = event_ms(lambda: fcomb_mean_decode(feats, zs, params, 4, torch.bfloat16), 10)
+        fcomb_ms = event_ms(lambda: fcomb_mean_decode(feats, zs, params, 4, torch.bfloat16), 20)
         fcomb_plain_ms = event_ms(
             lambda: fcomb_mean_decode_reference(feats, zs, params, 4, torch.bfloat16), 3)
+        # the f32 route (CUDA cores) on the same chunk's features cast to f32
+        feats32 = feats.float()
+        compare_fcomb(feats32, zs, params, 4, torch.float32, "one real chunk N=128 as f32")
+        fcomb_ms_f32 = event_ms(lambda: fcomb_mean_decode(feats32, zs, params, 4, torch.float32), 3)
         n, h, w, cf = feats.shape
         f0, c, s = 64, 3, 5
         flops = 2.0 * n * h * w * (cf * f0 + s * (2 * f0 * f0 + f0 * c))
         nbytes = feats.numel() * 2 + n * h * w * c * 4 + zs.numel() * 4
         fcomb_bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
-    print(f"  [{card}] fcomb_mean_decode (N=128, 128², bf16, S=5): {fcomb_ms:.3f} ms/launch, "
-          f"plain {fcomb_plain_ms:.3f} ms, bound {fcomb_bound:.4f} ms "
-          f"({flops:.3g} FLOP, {nbytes / 1e6:.1f} MB), {launches['fcomb_mean_decode']} launches/volume")
+    print(f"  [{card}] fcomb_mean_decode (N=128, 128², bf16, S=5, tensor-core route): "
+          f"{fcomb_ms:.4f} ms/launch ({flops / fcomb_ms / 1e9:.1f} TFLOP/s, "
+          f"{100 * fcomb_bound / fcomb_ms:.1f} % of the bound), plain {fcomb_plain_ms:.3f} ms, "
+          f"bound {fcomb_bound:.4f} ms ({flops:.3g} FLOP, {nbytes / 1e6:.1f} MB), "
+          f"{launches['fcomb_mean_decode']} launches/volume; f32 (CUDA-core route) "
+          f"{fcomb_ms_f32:.3f} ms/launch")
     print(f"  [{card}] gather_normalize_planes (384 planes of 128²): {gather_ms:.4f} ms/launch, "
           f"plain {gather_plain_ms:.4f} ms, bound {gather_bound:.4f} ms ({gbytes / 1e6:.1f} MB), "
           f"{launches['gather_normalize_planes']} launches/volume")
@@ -504,7 +568,7 @@ def phase_full(card):
          "launches": launches["fcomb_mean_decode"], "max_abs_err": fcomb_err,
          "ms": fcomb_ms, "plain_ms": fcomb_plain_ms, "bound_ms": fcomb_bound,
          "bound_by": "operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_HBM_BYTES else "bytes",
-         "library_ms": None},
+         "library_ms": None, "kernel_route": "tensor_core", "ms_f32": fcomb_ms_f32},
         {"name": "gather_normalize_planes", "route": "cuda",
          "source": "pmpu_tpu_torch/ops/cuda/csrc/slice_gather.cu",
          "replaces": "pmpu_tpu/ops/pallas/slice_gather.py:49",
@@ -559,8 +623,9 @@ def phase_int8(card, task, vol, truth, r_bf16, bf16_summary):
     torch.cuda.synchronize()
     print(f"  warm-up volume {time.perf_counter() - t0:.2f} s")
 
-    for k in (fused_qchain, fcomb_mean_decode, gather_normalize_planes):
+    for k in (fused_qchain, gather_normalize_planes):
         k.launches = 0
+    reset_fcomb_counts()
     r = ev.evaluate_volume(vol, truth)
     torch.cuda.synchronize()
     launches = {"fused_qchain": fused_qchain.launches,
@@ -568,6 +633,7 @@ def phase_int8(card, task, vol, truth, r_bf16, bf16_summary):
                 "gather_normalize_planes": gather_normalize_planes.launches}
     print(f"  launches in one int8 volume: {launches}")
     require(all(n > 0 for n in launches.values()), f"a kernel was not on the int8 path: {launches}")
+    require_fcomb_route(3, "int8")
     fused = r["fused"]
     require(tuple(fused.shape) == (128, 128, 128, 3) and torch.isfinite(fused).all().item(),
             "int8: fused probabilities not finite or of the wrong shape")
@@ -717,12 +783,14 @@ def phase_oblique(card, task, vol, truth):
                "fcomb_mean_decode": fcomb_mean_decode}
     for k in kernels.values():
         k.launches = 0
+    reset_fcomb_counts()
     r = ev.evaluate_volume(vol, truth)
     torch.cuda.synchronize()
     launches = {name: k.launches for name, k in kernels.items()}
     print(f"  launches in one 6-view volume: {launches}")
     require(launches["oblique_planes"] == 1 and all(n > 0 for n in launches.values()),
             f"6-view path: launches {launches}")
+    require_fcomb_route(6, "6-view")
 
     fused = r["fused"]
     s = fused.shape[0]

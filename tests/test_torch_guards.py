@@ -74,7 +74,8 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
 def test_kernel_modules_build_and_load_nothing_on_cpu():
     """Importing the kernel modules and running every wrapper on CPU
     tensors (their plain versions), the int8 and the 6-view paths included,
-    starts no nvcc and loads no library."""
+    starts no nvcc, loads no library and counts no launch on either fcomb
+    route."""
     code = (
         "import subprocess, torch\n"
         "def no_nvcc(*a, **k): raise AssertionError('nvcc started')\n"
@@ -94,8 +95,9 @@ def test_kernel_modules_build_and_load_nothing_on_cpu():
         ".evaluate_volume(torch.rand(8, 8, 8).numpy())\n"
         "print(_build.library.cache_info().currsize,\n"
         "      fcomb_mean.fcomb_mean_decode.launches,\n"
+        "      sum(fcomb_mean.fcomb_mean_decode.launches_by_route.values()),\n"
         "      slice_gather.gather_normalize_planes.launches,\n"
         "      qconv.fused_qchain.launches,\n"
         "      oblique_gather.oblique_planes.launches)\n"
     )
-    assert _run(code).split() == ["0", "0", "0", "0", "0"]
+    assert _run(code).split() == ["0", "0", "0", "0", "0", "0"]
