@@ -20,6 +20,10 @@ Phases, each printing at least one line; any failure exits non-zero:
              the int8 conv chain, bit-exact, in both launch forms (row
              stripes and the whole image), L = 1, 2, 3, 3×3 and 1×1,
              Cin = 1, odd H and W, f32/bf16/int8 in and out, split input;
+             for its weight ring and staged epilogue K loops of 1, 2, 3, 9
+             and 27 steps, couts 24, 40 and 72, cout 1024 at 8² with
+             cin 512, the split input at 128 + 128, H = 13 with a ragged
+             last stripe and H = 16 in stripes of 4, N = 1;
              the oblique-plane kernel, bit-exact, at S = 16 and 17 with 1, 5
              and 6 views (the x-axis basis, a tilted one whose outer planes
              leave the cube, the golden-spiral views).
@@ -42,8 +46,9 @@ Phases, each printing at least one line; any failure exits non-zero:
              evaluator reloading the file reproduces the fused volume bit for
              bit, timings beside phase 5's, int8-vs-bf16 argmax agreement;
              every conv-chain launch of one chunk replayed against the plain
-             version (bit-exact) and timed beside its bound. The kernels
-             line's conv-chain entry averages those launches.
+             version (bit-exact) and timed beside its bound, with its stripe
+             rows and blocks. The kernels line's conv-chain entry averages
+             those launches.
 7. oblique — the same model, weights and volume through the 6-view oblique
              path (``num_views=6``): launch counts (one oblique-plane launch
              a volume), probabilities summing to 1 where every view covers
@@ -253,7 +258,7 @@ def _cuda_chain(seed, shapes, kernel=3):
 
 def phase_qconv():
     """The int8 conv-chain kernel against its plain version, bit for bit."""
-    from pmpu_tpu_torch.ops.cuda.qconv import chain_reference, fused_qchain
+    from pmpu_tpu_torch.ops.cuda.qconv import chain_reference, fused_qchain, launch_plan
 
     f32, bf16, s8 = torch.float32, torch.bfloat16, torch.int8
     g = torch.Generator(device="cuda").manual_seed(8)
@@ -288,9 +293,37 @@ def phase_qconv():
                       _cuda_chain(12, [(64, 64), (64, 32)]), (3, 10, 7), s8, split_out, None,
                       {"x_scale": sc[0.021], "x2": rand_x(3, 10, 7, 40, s8),
                        "x2_scale": sc[0.034], "out_xs": sc[0.05]}))
+    # the weight ring and the staged epilogue: K loops of 1, 2 and 3 steps
+    # (fewer than the ring's 4 stages) and of 9 and 27 (not multiples of 4);
+    # couts 24, 40 and 72 (n-tiles not full) in every output dtype; cout 1024
+    # at 8² (many n-tiles a round); the split input at 128 + 128; H = 13 in
+    # stripes whose last one is ragged and H = 16 in stripes of 4; N = 1
+    for cin, kernel in ((32, 1), (64, 1), (96, 1), (32, 3), (96, 3)):
+        steps = (kernel * kernel) * (cin // 32)
+        cases.append((f"K loop of {steps} steps", _cuda_chain(13 + cin, [(cin, 64)], kernel),
+                      (2, 9, 11), s8, f32, None, {"x_scale": sc[0.021]}))
+    for cout, out_dt in ((24, f32), (40, bf16), (72, s8), (24, s8), (40, f32)):
+        cases.append((f"cout {cout} -> {out_dt}", _cuda_chain(14 + cout, [(48, cout), (cout, cout)]),
+                      (2, 12, 10), f32, out_dt, None, {"out_xs": sc[0.05]}))
+    cases.append(("8x8 512 -> 1024, N=2", _cuda_chain(15, [(512, 1024)]), (2, 8, 8), s8, bf16, None,
+                  {"x_scale": sc[0.021]}))
+    cases.append(("split 128+128 -> 64 -> 64", _cuda_chain(16, [(256, 64), (64, 64)]),
+                  (2, 16, 128), s8, bf16, None,
+                  {"x_scale": sc[0.021], "x2": rand_x(2, 16, 128, 128, s8), "x2_scale": sc[0.034]}))
+    cases.append(("H=13, W=128, ragged last stripe", _cuda_chain(17, [(128, 64), (64, 64)]),
+                  (2, 13, 128), s8, s8, None,
+                  {"x_scale": sc[0.021], "x2": rand_x(2, 13, 128, 64, s8), "x2_scale": sc[0.034],
+                   "out_xs": sc[0.05]}))
+    cases.append(("H=16 in stripes of 4", _cuda_chain(18, [(64, 64), (64, 64)]), (2, 16, 16), s8,
+                  f32, 4, {"x_scale": sc[0.021]}))
+    cases.append(("N=1, 128x128", _cuda_chain(19, [(1, 64), (64, 64)]), (1, 128, 128), f32, s8,
+                  None, {"out_xs": sc[0.05]}))
     for label, layers, (n, h, w), in_dt, out_dt, tile, extra in cases:
         cin = layers[0]["w"].shape[2] - (extra["x2"].shape[-1] if "x2" in extra else 0)
         x = rand_x(n, h, w, cin, in_dt)
+        if label.startswith("H=13"):
+            th = launch_plan(x, layers, out_dt, extra["x2"])[1]
+            require(h % th != 0, f"qconv {label}: stripes of {th} rows leave no ragged stripe")
         got = fused_qchain(x, layers, out_dt, tile, **extra)
         want = chain_reference(x, layers, out_dt, **extra)
         torch.cuda.synchronize()
@@ -298,7 +331,9 @@ def phase_qconv():
                 f"qconv {label}: kernel differs from its plain version "
                 f"({int((got != want).sum())} of {got.numel()} values)")
     print(f"  int8 conv chain: {len(cases)} cases (stripes and whole image, L=1..3, 3x3 and "
-          f"1x1, Cin=1, odd H and W, f32/bf16/int8 in and out, split input): bit-exact")
+          f"1x1, Cin=1, odd H and W, f32/bf16/int8 in and out, split input; K loops of 1 to "
+          f"27 steps, couts 24/40/72, cout 1024 at 8², split 128+128, a ragged last stripe, "
+          f"N=1): bit-exact")
 
 
 def phase_parity():
@@ -583,8 +618,8 @@ def phase_full(card):
 
 
 def chain_cost(x, layers, kw, out):
-    """(int8 operations, bytes each read or written once, stripe rows, H)
-    of one conv-chain launch."""
+    """(int8 operations, bytes each read or written once, stripe rows, H,
+    blocks) of one conv-chain launch."""
     from pmpu_tpu_torch.ops.cuda.qconv import launch_plan
 
     n, h, w, _ = x.shape
@@ -593,7 +628,8 @@ def chain_cost(x, layers, kw, out):
     nbytes = (x.numel() * x.element_size() + out.numel() * out.element_size()
               + sum(l["w"].numel() + 8 * l["w"].shape[-1] for l in layers)
               + (0 if x2 is None else x2.numel()))
-    return ops, nbytes, launch_plan(x, layers, x2)[1], h
+    th = launch_plan(x, layers, out.dtype, x2)[1]
+    return ops, nbytes, th, h, n * -(-h // th)
 
 
 def phase_int8(card, task, vol, truth, r_bf16, bf16_summary):
@@ -697,15 +733,17 @@ def phase_int8(card, task, vol, truth, r_bf16, bf16_summary):
             max_err = max(max_err, (out.float() - want.float()).abs().max().item())
             ms = event_ms(lambda: orig(x, layers, out_dtype, **kw), 10)
             plain = event_ms(lambda: chain_reference(x, layers, out_dtype, **kw), 2)
-            ops, nbytes, th, h = chain_cost(x, layers, kw, out)
+            ops, nbytes, th, h, blocks = chain_cost(x, layers, kw, out)
             bound = max(ops / PEAK_INT8_OPS, nbytes / PEAK_HBM_BYTES) * 1e3
             rows.append({"input": list(x.shape), "x2": kw.get("x2") is not None,
                          "chans": [list(l["w"].shape[2:]) for l in layers],
-                         "out": str(out_dtype), "stripe_rows": th, "whole_image": th >= h,
+                         "out": str(out_dtype), "stripe_rows": th, "blocks": blocks,
+                         "whole_image": th >= h,
                          "ms": ms, "plain_ms": plain, "bound_ms": bound, "ops": ops,
                          "bytes": nbytes, "tops": ops / ms / 1e9})
     for row in rows:
-        form = "whole image" if row["whole_image"] else f"stripes of {row['stripe_rows']}"
+        form = ("whole image" if row["whole_image"] else f"stripes of {row['stripe_rows']}") + \
+            f", {row['blocks']} blocks"
         print(f"  [{card}] chain {row['input']}{' +split' if row['x2'] else ''} {row['chans']} "
               f"-> {row['out']}, {form}: "
               f"{row['ms']:.3f} ms ({row['tops']:.1f} TOP/s), plain {row['plain_ms']:.2f} ms, bound "
