@@ -15,8 +15,10 @@ Phases, each printing at least one line; any failure exits non-zero:
              the tensor-core route (f0 = 16, 32, 128; S = 1 and 8; N=5 at 37²;
              one NaN pixel, NaN at exactly that pixel in both versions) and
              f0 = 136 on the CUDA-core route, each printing its route;
-             gather-normalize
-             with repeated ids, an all-zero plane and labels (bit-exact);
+             gather-normalize, bit-exact: 128² planes (in registers) with
+             repeated ids, an all-zero plane, a NaN, zeros of both signs, ids
+             out of range and labels; 768 planes of 128²; 13² and 256² (the
+             general path);
              the int8 conv chain, bit-exact, in both launch forms (row
              stripes and the whole image), L = 1, 2, 3, 3×3 and 1×1,
              Cin = 1, odd H and W, f32/bf16/int8 in and out, split input;
@@ -24,9 +26,11 @@ Phases, each printing at least one line; any failure exits non-zero:
              and 27 steps, couts 24, 40 and 72, cout 1024 at 8² with
              cin 512, the split input at 128 + 128, H = 13 with a ragged
              last stripe and H = 16 in stripes of 4, N = 1;
-             the oblique-plane kernel, bit-exact, at S = 16 and 17 with 1, 5
-             and 6 views (the x-axis basis, a tilted one whose outer planes
-             leave the cube, the golden-spiral views).
+             the oblique-plane kernel, bit-exact, at S = 16, 17 and 33 with
+             1, 5 and 6 views (the x-axis basis, a tilted one whose outer
+             planes leave the cube, the golden-spiral views, the tilted one
+             stretched 3x), and at S = 128 with the tilted view alone and
+             with 6 views.
 4. parity  — the whole path (probunet, filters 8,16, 32³, mean_z, f32, TF32
              off) on the card against the same weights on the CPU; then the
              same for the int8 path (``quantize="int8"``), the CPU run's
@@ -39,7 +43,8 @@ Phases, each printing at least one line; any failure exits non-zero:
              counts of the main path (every fcomb launch on the tensor-core
              route, as in phases 6 and 7); timings; each kernel at the main
              path's shapes against its plain version, fcomb also on its f32
-             (CUDA-core) route, with its TFLOP/s and share of the bound.
+             (CUDA-core) route and with its TFLOP/s; each kernel's line gives
+             its share of the bound.
 6. int8    — the same volume and weights through the int8 path
              (``quantize="int8"``, self-calibrated, scale file in a
              temporary directory): calibration time, launch counts, a fresh
@@ -55,7 +60,9 @@ Phases, each printing at least one line; any failure exits non-zero:
              the voxel, timings and stage times; the kernel at 128³ × 6
              views against its plain version (bit-exact) and against
              ``grid_sample`` (the library call computing the same
-             function); ``ged_volume`` with 4 draws, its value and time.
+             function); gather-normalize on the 768-plane oblique slab
+             (bit-exact, timed); ``ged_volume`` with 4 draws, its value and
+             time.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--json PATH`` also writes
@@ -89,12 +96,18 @@ def require(cond, msg):
         raise AssertionError(msg)
 
 
-def event_ms(fn, reps, warmup=1):
-    """Mean device milliseconds per call of ``fn`` over ``reps`` calls."""
+def event_ms(fn, reps, warmup=1, spin=True):
+    """Mean device milliseconds per call of ``fn`` over ``reps`` calls. With
+    ``spin``, a spin kernel of about 50 us a call runs first, so that the
+    host queues the calls before the device reaches the start event: a
+    kernel shorter than its launch's host time is timed back to back, not at
+    the host's pace."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if spin:
+        torch.cuda._sleep(reps * 100_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -181,11 +194,6 @@ def compare_fcomb(feats, zs, params, ncf, dtype, label, nan_pixel=None):
 
 
 def phase_kernels():
-    from pmpu_tpu_torch.ops.cuda.slice_gather import (
-        gather_normalize_planes,
-        gather_normalize_planes_reference,
-    )
-
     print("phase 3: kernels against their plain versions")
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -207,19 +215,66 @@ def phase_kernels():
     compare_fcomb(feats, zs, params, 4, torch.bfloat16, "N=2 32² f0=64 one NaN pixel bf16",
                   nan_pixel=(1, 5, 7))
     g = torch.Generator(device="cuda").manual_seed(3)
-    img = torch.rand((40, 128, 128), generator=g, device="cuda") * 50
-    img[7] = 0.0
-    lbl = torch.randint(0, 3, (40, 128, 128), generator=g, device="cuda", dtype=torch.int32)
-    ids = torch.randint(0, 40, (64,), generator=g, device="cuda")
-    ids[0] = ids[5] = 7
-    got_i, got_l = gather_normalize_planes(img, ids, lbl)
-    want_i, want_l = gather_normalize_planes_reference(img, ids, lbl)
-    torch.cuda.synchronize()
-    require(torch.equal(got_i, want_i) and torch.equal(got_l, want_l),
-            "gather-normalize: kernel differs from its plain version")
-    require(got_i[0].abs().sum().item() == 0, "gather-normalize: zero plane not passed through")
-    print("  gather-normalize: 64 of 40 planes (repeats, one all-zero, labels): bit-exact")
+    # (planes, side, ids, labels, offset): the fast path (128², a plane in
+    # registers) with repeated ids, an all-zero plane, a NaN in a plane,
+    # zeros of both signs and ids out of range; 768 planes; the fast path at
+    # 64² and 8², most register slots padded; the general path at 13² (not a
+    # multiple of 4 floats), 256² (too large for registers) and at 128² on
+    # tensors that start one float into their storage (not 16-byte aligned)
+    for p, side, n_ids, labels, offset in (
+            (40, 128, 64, True, 0), (768, 128, 768, False, 0), (20, 64, 32, True, 0),
+            (12, 8, 24, True, 0), (20, 13, 32, True, 0), (6, 256, 8, True, 0),
+            (20, 128, 32, True, 1)):
+        n = p * side * side
+        img = (torch.rand(n + offset, generator=g, device="cuda") * 50)[offset:].view(p, side, side)
+        lbl = (torch.randint(0, 3, (n + offset,), generator=g, device="cuda", dtype=torch.int32)
+               [offset:].view(p, side, side) if labels else None)
+        if n_ids == p:
+            ids = torch.arange(p, device="cuda")
+        else:
+            img[2] = 0.0
+            img[3, side // 2, 5] = float("nan")
+            img[4, : side // 2] = -0.0  # zeros of both signs beside positive values
+            img[5, 1] = 0.0
+            ids = torch.randint(0, p, (n_ids,), generator=g, device="cuda")
+            ids[:8] = torch.tensor([2, 3, p, 2, -1, 3, 4, 5])
+        got = check_gather(img, ids, lbl, f"{len(ids)} of {p} planes of {side}²"
+                           + ("" if n_ids == p else " (repeats, all-zero, NaN, ±0, ids out of range)")
+                           + (", labels" if labels else "")
+                           + (f", {offset} float into storage" if offset else ""))
+        require(n_ids == p or got[0].abs().sum().item() == 0,
+                "gather-normalize: zero plane not passed through")
     return errs
+
+
+def bits_equal(got, want):
+    """Equal bit for bit where ``want`` is a number, NaN where it is NaN."""
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) and torch.equal(
+        got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+
+def check_gather(img, ids, lbl, label):
+    """The gather kernel against its plain version (an id out of range gives
+    a NaN plane and -1 labels), bit for bit; returns the kernel's planes."""
+    from pmpu_tpu_torch.ops.cuda.slice_gather import (
+        gather_normalize_planes,
+        gather_normalize_planes_reference,
+    )
+
+    got_i, got_l = gather_normalize_planes(img, ids, lbl)
+    ok = (ids >= 0) & (ids < img.shape[0])
+    want_i = torch.full_like(got_i, float("nan"))
+    want_i[ok], ref_l = gather_normalize_planes_reference(img, ids[ok], lbl)
+    torch.cuda.synchronize()
+    require(bits_equal(got_i, want_i), f"gather-normalize {label}: image differs from its plain "
+                                       f"version")
+    if lbl is not None:
+        want_l = torch.full_like(got_l, -1)
+        want_l[ok] = ref_l
+        require(torch.equal(got_l, want_l), f"gather-normalize {label}: labels differ")
+    print(f"  gather-normalize, {label}: bit-exact")
+    return got_i
 
 
 def phase_oblique_kernel():
@@ -229,25 +284,30 @@ def phase_oblique_kernel():
     from pmpu_tpu_torch.ops.cuda.oblique_gather import oblique_planes, oblique_planes_reference
 
     g = torch.Generator(device="cuda").manual_seed(9)
-    bases = {"x-axis": view_basis([1.0, 0.0, 0.0])[None],
-             "tilted": view_basis([0.3, 0.5, 0.81])[None],
-             "5 views": make_view_bases(5), "6 views": make_view_bases(6)}
-    for s in (16, 17):
-        vol = torch.rand((s, s, s), generator=g, device="cuda") + 0.5  # no voxel is 0
-        for label, b in bases.items():
-            b = torch.from_numpy(b).cuda()
-            got = oblique_planes(vol, b)
-            want = oblique_planes_reference(vol, b)
-            torch.cuda.synchronize()
-            require(got.shape == (b.shape[0] * s, s, s) and torch.equal(got, want),
-                    f"oblique S={s} {label}: kernel differs from its plain version "
-                    f"({int((got != want).sum())} of {got.numel()} values)")
-            if label == "x-axis":
-                require(torch.equal(got, vol), f"oblique S={s}: x-axis planes are not the slices")
-            elif label == "tilted":
-                require(bool((got[0] == 0).any()) and bool((got[0] != 0).any()),
-                        f"oblique S={s}: the tilted outer plane does not leave the cube")
-    print(f"  oblique planes: S = 16 and 17 x {list(bases)}: bit-exact")
+    tilted = view_basis([0.3, 0.5, 0.81])[None]
+    bases = {"x-axis": view_basis([1.0, 0.0, 0.0])[None], "tilted": tilted,
+             "5 views": make_view_bases(5), "6 views": make_view_bases(6),
+             "stretched x3": 3 * tilted}  # not orthonormal: most points leave the cube
+    cases = [(s, label) for s in (16, 17, 33) for label in bases]
+    cases += [(128, "tilted"), (128, "6 views")]  # S = 128 with V = 1 and 6
+    vols = {}
+    for s, label in cases:
+        if s not in vols:
+            vols[s] = torch.rand((s, s, s), generator=g, device="cuda") + 0.5  # no voxel is 0
+        vol, b = vols[s], torch.from_numpy(bases[label]).cuda()
+        got = oblique_planes(vol, b)
+        want = oblique_planes_reference(vol, b)
+        torch.cuda.synchronize()
+        require(got.shape == (b.shape[0] * s, s, s) and bits_equal(got, want),
+                f"oblique S={s} {label}: kernel differs from its plain version "
+                f"({int((got != want).sum())} of {got.numel()} values)")
+        if label == "x-axis":
+            require(torch.equal(got, vol), f"oblique S={s}: x-axis planes are not the slices")
+        elif label == "tilted":
+            require(bool((got[0] == 0).any()) and bool((got[0] != 0).any()),
+                    f"oblique S={s}: the tilted outer plane does not leave the cube")
+    print(f"  oblique planes: S = 16, 17 and 33 x {list(bases)}; S = 128 x tilted (V = 1) "
+          f"and 6 views: bit-exact")
 
 
 def _cuda_chain(seed, shapes, kernel=3):
@@ -562,8 +622,10 @@ def phase_full(card):
         ids = torch.arange(slabs.shape[0], device="cuda")
         got = gather_normalize_planes(slabs, ids)[0]
         want = gather_normalize_planes_reference(slabs, ids)[0]
-        require(torch.equal(got, want), "gather-normalize differs at the main path's shape")
+        require(bits_equal(got, want), "gather-normalize differs at the main path's shape")
         gather_ms = event_ms(lambda: gather_normalize_planes(slabs, ids), 50)
+        # the same timing without the spin kernel, to show what the spin changes
+        gather_ms_no_spin = event_ms(lambda: gather_normalize_planes(slabs, ids), 50, spin=False)
         gather_plain_ms = event_ms(lambda: gather_normalize_planes_reference(slabs, ids), 20)
         gbytes = 2 * slabs.numel() * 4 + ids.numel() * 8
         gather_bound = max(gbytes / PEAK_HBM_BYTES, 2 * slabs.numel() / PEAK_F32_FLOPS) * 1e3
@@ -593,8 +655,9 @@ def phase_full(card):
           f"bound {fcomb_bound:.4f} ms ({flops:.3g} FLOP, {nbytes / 1e6:.1f} MB), "
           f"{launches['fcomb_mean_decode']} launches/volume; f32 (CUDA-core route) "
           f"{fcomb_ms_f32:.3f} ms/launch")
-    print(f"  [{card}] gather_normalize_planes (384 planes of 128²): {gather_ms:.4f} ms/launch, "
-          f"plain {gather_plain_ms:.4f} ms, bound {gather_bound:.4f} ms ({gbytes / 1e6:.1f} MB), "
+    print(f"  [{card}] gather_normalize_planes (384 planes of 128²): {gather_ms:.4f} ms/launch "
+          f"({gather_ms_no_spin:.4f} without the spin kernel), plain {gather_plain_ms:.4f} ms, bound {gather_bound:.4f} ms ({gbytes / 1e6:.1f} MB), "
+          f"{100 * gather_bound / gather_ms:.1f} % of the bound, "
           f"{launches['gather_normalize_planes']} launches/volume")
     kernels = [
         {"name": "fcomb_mean_decode", "route": "cuda",
@@ -610,7 +673,7 @@ def phase_full(card):
          "launches": launches["gather_normalize_planes"],
          "max_abs_err": (got - want).abs().max().item(),
          "ms": gather_ms, "plain_ms": gather_plain_ms, "bound_ms": gather_bound,
-         "bound_by": "bytes", "library_ms": None},
+         "bound_by": "bytes", "library_ms": None, "ms_no_spin": gather_ms_no_spin},
     ]
     summary = {"card": card, "wall_s_per_volume": walls, "event_ms_per_volume": spans,
                "stage_ms": stages, "peak_allocated_gb": peak_gb, "dice": r["dice"].tolist()}
@@ -808,7 +871,10 @@ def phase_oblique(card, task, vol, truth):
     from pmpu_tpu_torch.data.sampler import plane_grid
     from pmpu_tpu_torch.ops.cuda.fcomb_mean import fcomb_mean_decode
     from pmpu_tpu_torch.ops.cuda.oblique_gather import oblique_planes, oblique_planes_reference
-    from pmpu_tpu_torch.ops.cuda.slice_gather import gather_normalize_planes
+    from pmpu_tpu_torch.ops.cuda.slice_gather import (
+        gather_normalize_planes,
+        gather_normalize_planes_reference,
+    )
 
     print("phase 7: 6-view oblique path at full width (the same model and volume, num_views=6)")
     ev = VolumeEvaluator(task, n_samples=5, eval_batch=0, num_views=6, input_dtype="uint8")
@@ -890,7 +956,21 @@ def phase_oblique(card, task, vol, truth):
     print(f"  [{card}] oblique_planes (128³, 6 views, 768 planes): {ms:.4f} ms/launch, plain "
           f"{plain_ms:.2f} ms, grid_sample {lib_ms:.4f} ms (max |diff| {lib_err:.2g}), bound "
           f"{bound:.4f} ms ({flops:.3g} FLOP, {nbytes / 1e6:.1f} MB), "
-          f"{launches['oblique_planes']} launch/volume")
+          f"{100 * bound / ms:.1f} % of the bound, {launches['oblique_planes']} launch/volume")
+
+    # gather-normalize on the 6-view path's input: the (768,128,128) slab
+    with torch.inference_mode():
+        ids = torch.arange(got.shape[0], device="cuda")
+        g_got = gather_normalize_planes(got, ids)[0]
+        require(bits_equal(g_got, gather_normalize_planes_reference(got, ids)[0]),
+                "gather-normalize differs on the 768-plane oblique slab")
+        g_ms = event_ms(lambda: gather_normalize_planes(got, ids), 50)
+    g_bytes = 2 * got.numel() * 4 + ids.numel() * 8
+    g_bound = max(g_bytes / PEAK_HBM_BYTES, 2 * got.numel() / PEAK_F32_FLOPS) * 1e3
+    print(f"  [{card}] gather_normalize_planes (768 planes of 128², the oblique slab): "
+          f"{g_ms:.4f} ms/launch, bound {g_bound:.4f} ms ({g_bytes / 1e6:.1f} MB), "
+          f"{100 * g_bound / g_ms:.1f} % of the bound, "
+          f"{launches['gather_normalize_planes']} launch/volume")
 
     oblique_planes.launches = 0
     ged_s = []
@@ -916,7 +996,7 @@ def phase_oblique(card, task, vol, truth):
     summary = {"launches": launches, "wall_s_per_volume": walls, "event_ms_per_volume": spans,
                "stage_ms": stages, "dice": r["dice"].tolist(), "sum_err_covered": sum_err,
                "covered_share": inside.float().mean().item(), "grid_sample_max_abs_diff": lib_err,
-               "ged": ged, "ged_s": ged_s}
+               "ged": ged, "ged_s": ged_s, "gather_768": {"ms": g_ms, "bound_ms": g_bound}}
     return kernel, summary
 
 
@@ -961,6 +1041,8 @@ def main() -> int:
     kernels.append(kernel)
     kernel, summary["oblique"] = phase_oblique(card, task, vol, truth)
     kernels.append(kernel)
+    gather = next(k for k in kernels if k["name"] == "gather_normalize_planes")
+    gather.update({f"{k}_768": v for k, v in summary["oblique"]["gather_768"].items()})
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:

@@ -19,92 +19,112 @@
 // pmpu_tpu_torch/data/sampler.py): the two agree bit for bit. The texture
 // unit's trilinear filtering is not used: its weights are 9-bit fixed point.
 //
-// What bounds it on this card: bytes. At 128^3 x 6 views it writes 50 MB
-// and reads the 8.4 MB volume, about 56 f32 operations per output (0.018 ms
-// of HBM time against 0.011 ms of f32 issue at the published peaks). One
-// thread per output voxel, consecutive threads along the last in-plane axis,
-// so the stores coalesce; the eight corner reads of neighbouring threads are
-// neighbouring voxels of the volume, which stays resident in the 50 MB L2
-// and is read through the read-only path (__ldg). The bases (V x 9 floats)
-// are staged in shared memory once per block.
+// What bounds it on this card: bytes, by the published peaks. At 128^3 x 6
+// views it writes 50 MB and reads the 8.4 MB volume, about 56 f32
+// operations an output: 0.0175 ms. Each output reads 8 scattered corners,
+// which L1 serves (the volume stays in L2). A block covers 8 columns
+// x 8 rows x 32 planes of one view (3-D grid: column tile, row tile, view x
+// plane tile). A warp samples 8 columns x 2 rows x 2 planes: its stores fill
+// whole 32-byte sectors and its corners stay within a few voxels of each
+// other. Each thread writes 8 outputs of one (a, b), 4 planes apart,
+// sharing the partial sum (c + u*B[0]) + w*B[1]. Index arithmetic is 32-bit
+// (the wrapper refuses 2^31 outputs or more). Measured (chip_smoke.py, H100
+// 80GB HBM3 at 700 W): 0.107 ms at 128^3 x 6 views, 16 % of the bound.
+// The volume is read through L1, not staged in shared memory: staging was
+// measured slower (PERF.md §6).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr int kTile = 8;      // columns and rows of a block
+constexpr int kPlanes = 32;   // planes of a block
 constexpr int kThreads = 256;
+constexpr int kLayer = kThreads / (kTile * kTile);  // planes the block covers at once: 4
+// A warp's tile of planes, rows, columns; the block's warps tile one layer.
+constexpr int kWI = 2, kWA = 2, kWB = 8;
+constexpr int kNWB = kTile / kWB, kNWA = kTile / kWA;
+static_assert(kWI * kWA * kWB == 32 && (kLayer / kWI) * kNWA * kNWB == kThreads / 32,
+              "the warps' tiles must cover a layer");
 
-__global__ void __launch_bounds__(kThreads)
-oblique_planes_kernel(const float* __restrict__ vol, const float* __restrict__ bases,
-                      float* __restrict__ out, int s, int n_views) {
-  extern __shared__ float sb[];  // (n_views, 3, 3)
-  for (int t = threadIdx.x; t < n_views * 9; t += kThreads) sb[t] = bases[t];
-  __syncthreads();
-
-  const int64_t plane = (int64_t)s * s;
-  const int64_t total = (int64_t)n_views * s * plane;
-  const int64_t o = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (o >= total) return;
-  const int b = (int)(o % s);
-  const int a = (int)((o / s) % s);
-  const int64_t p = o / plane;  // v * s + i
-  const int i = (int)(p % s);
-  const float* B = sb + (p / s) * 9;
-
-  const float c = (float)(s - 1) * 0.5f;
-  const float u = __fsub_rn((float)a, c);
-  const float w = __fsub_rn((float)b, c);
-  const float off = __fsub_rn((float)i, c);
-
+// Trilinear sample at p from the volume (device memory, via L1): each
+// corner clamped into the cube for its read and masked to 0 outside it.
+__device__ __forceinline__ float sample(const float* __restrict__ vol, int s, const float (&p)[3]) {
   float f[3];
   int k0[3];
 #pragma unroll
   for (int ax = 0; ax < 3; ++ax) {
-    const float x = __fadd_rn(__fadd_rn(__fadd_rn(c, __fmul_rn(u, B[ax])), __fmul_rn(w, B[3 + ax])),
-                              __fmul_rn(off, B[6 + ax]));
-    const float fl = floorf(x);
-    f[ax] = __fsub_rn(x, fl);
+    const float fl = floorf(p[ax]);
+    f[ax] = __fsub_rn(p[ax], fl);
     k0[ax] = (int)fl;
   }
-
   float acc = 0.f;
 #pragma unroll
-  for (int dx = 0; dx < 2; ++dx) {
-#pragma unroll
-    for (int dy = 0; dy < 2; ++dy) {
-#pragma unroll
-      for (int dz = 0; dz < 2; ++dz) {
-        const int jx = k0[0] + dx, jy = k0[1] + dy, jz = k0[2] + dz;
-        const bool valid = jx >= 0 && jx < s && jy >= 0 && jy < s && jz >= 0 && jz < s;
-        const int cx = min(max(jx, 0), s - 1), cy = min(max(jy, 0), s - 1),
-                  cz = min(max(jz, 0), s - 1);
-        const float val = valid ? __ldg(vol + ((int64_t)cx * s + cy) * s + cz) : 0.f;
-        const float wx = dx ? f[0] : __fsub_rn(1.f, f[0]);
-        const float wy = dy ? f[1] : __fsub_rn(1.f, f[1]);
-        const float wz = dz ? f[2] : __fsub_rn(1.f, f[2]);
-        acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(__fmul_rn(wx, wy), wz), val));
-      }
-    }
+  for (int d = 0; d < 8; ++d) {
+    const int jx = k0[0] + (d >> 2), jy = k0[1] + ((d >> 1) & 1), jz = k0[2] + (d & 1);
+    const bool valid = jx >= 0 && jx < s && jy >= 0 && jy < s && jz >= 0 && jz < s;
+    const int cx = min(max(jx, 0), s - 1), cy = min(max(jy, 0), s - 1), cz = min(max(jz, 0), s - 1);
+    const float val = valid ? __ldg(vol + (cx * s + cy) * s + cz) : 0.f;
+    const float wx = d & 4 ? f[0] : __fsub_rn(1.f, f[0]);
+    const float wy = d & 2 ? f[1] : __fsub_rn(1.f, f[1]);
+    const float wz = d & 1 ? f[2] : __fsub_rn(1.f, f[2]);
+    acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(__fmul_rn(wx, wy), wz), val));
   }
-  out[o] = acc;
+  return acc;
+}
+
+__global__ void __launch_bounds__(kThreads)
+oblique_planes_kernel(const float* __restrict__ vol, const float* __restrict__ bases,
+                      float* __restrict__ out, int s, int plane_tiles) {
+  const int v = blockIdx.z / plane_tiles;
+  const int i0 = (blockIdx.z - v * plane_tiles) * kPlanes;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * kTile + (warp % kNWB) * kWB + lane % kWB;
+  const int a = blockIdx.y * kTile + (warp / kNWB % kNWA) * kWA + lane / kWB % kWA;
+  const int iq = warp / (kNWB * kNWA) * kWI + lane / (kWB * kWA);
+  if (a >= s || b >= s) return;
+
+  float B[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) B[k] = __ldg(bases + v * 9 + k);
+  const float c = (float)(s - 1) * 0.5f;
+  const float u = __fsub_rn((float)a, c);
+  const float w = __fsub_rn((float)b, c);
+  float uw[3];  // (c + u*B[0]) + w*B[1], shared by this thread's planes
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax)
+    uw[ax] = __fadd_rn(__fadd_rn(c, __fmul_rn(u, B[ax])), __fmul_rn(w, B[3 + ax]));
+
+#pragma unroll 4
+  for (int k = 0; k < kPlanes / kLayer; ++k) {
+    const int i = i0 + iq + k * kLayer;
+    if (i >= s) break;
+    const float off = __fsub_rn((float)i, c);
+    float p[3];
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) p[ax] = __fadd_rn(uw[ax], __fmul_rn(off, B[6 + ax]));
+    out[((v * s + i) * s + a) * s + b] = sample(vol, s, p);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// vol (s, s, s) f32; bases (n_views, 3, 3) f32; out (n_views * s, s, s) f32.
-// Returns a cudaError_t code.
+// vol (s, s, s) f32; bases (n_views, 3, 3) f32; out (n_views * s, s, s) f32,
+// fewer than 2^31 values. Returns a cudaError_t code.
 int pmpu_oblique_planes(const void* vol, const void* bases, void* out, int s, int n_views,
                         void* stream) {
   if (s <= 0 || n_views <= 0) return (int)cudaSuccess;
-  const int64_t total = (int64_t)n_views * s * s * s;
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  const size_t smem = (size_t)n_views * 9 * sizeof(float);
-  oblique_planes_kernel<<<(unsigned)blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int tiles = (s + kTile - 1) / kTile;
+  const int plane_tiles = (s + kPlanes - 1) / kPlanes;
+  if ((int64_t)n_views * s * s * s > INT32_MAX || (int64_t)plane_tiles * n_views > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(tiles, tiles, plane_tiles * n_views);
+  oblique_planes_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(vol), static_cast<const float*>(bases), static_cast<float*>(out),
-      s, n_views);
+      s, plane_tiles);
   return (int)cudaGetLastError();
 }
 

@@ -7,8 +7,9 @@ lowered on the TPU. Here one launch samples all S planes of all V views
 into the (V·S,S,S) slab of the oblique inference path: plane ``v·S + i``
 sits at offset ``i − (S−1)/2`` along ``bases[v][2]``, as
 ``pmpu_tpu/inference/fusion.py::oblique_slabs`` stacks it. The kernel
-(``csrc/oblique_gather.cu``) rounds every step as the plain version does,
-so the two agree bit for bit on the card.
+(``csrc/oblique_gather.cu``) gives each block 8 columns × 8 rows × 32
+planes of one view and rounds every step as the plain version does, so
+the two agree bit for bit on the card.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 from pmpu_tpu_torch.data.sampler import oblique_plane, plane_grid
 from pmpu_tpu_torch.ops.cuda import _build
 
-MAX_VIEWS = 1024  # the bases of all views sit in one block's shared memory
+MAX_VIEWS = 1024  # views a launch takes
 
 
 def oblique_planes_reference(volume: torch.Tensor, bases: torch.Tensor) -> torch.Tensor:
@@ -52,6 +53,8 @@ def oblique_planes(volume: torch.Tensor, bases: torch.Tensor) -> torch.Tensor:
         return oblique_planes_reference(volume, bases)
     volume, bases = volume.contiguous(), bases.contiguous()
     s, v = volume.shape[0], bases.shape[0]
+    if v * s**3 >= 2**31:
+        raise ValueError(f"oblique_planes: {v} views of {s}^3 make 2^31 outputs or more")
     out = torch.empty((v * s, s, s), dtype=torch.float32, device=volume.device)
     lib = _library()
     with torch.cuda.device(volume.device):

@@ -6,9 +6,11 @@ from a (P,S,S) stack, divides each image plane by its own max (by 1 when
 the max is 0) and copies the label plane. With the (3S,S,S) view slab and
 ids ``0..3S-1`` it is exactly ``normalize_slabs`` of the inference path.
 
-The kernel (``csrc/slice_gather.cu``) is a reduction plus an elementwise
-pass, which would suit Triton as well; it is CUDA C++ so that both kernels
-of the inference path share one build route.
+The kernel (``csrc/slice_gather.cu``) gives each output plane one block.
+A plane of up to 128² floats whose size is a multiple of 4 is read once
+into registers with 16-byte loads, reduced to its max and divided in
+place; other planes take a two-pass general path of the same kernel. It is
+CUDA C++ so that the kernels of the inference path share one build route.
 """
 
 from __future__ import annotations
@@ -60,6 +62,8 @@ def gather_normalize_planes(
                          "img_planes' shape, on its device")
     flat_idx = flat_idx.contiguous()
     p, h, w = img_planes.shape
+    if h * w >= 2**31:
+        raise ValueError(f"gather_normalize_planes: a plane of {h}x{w} has 2^31 floats or more")
     b = flat_idx.shape[0]
     img_out = torch.empty((b, h, w), dtype=torch.float32, device=dev)
     lbl_out = None if lbl_planes is None else torch.empty((b, h, w), dtype=torch.int32, device=dev)

@@ -69,16 +69,21 @@ def _stacks(n=2, s=8):
     return make_view_stacks(imgs), make_view_stacks(lbls)
 
 
-def test_gather_normalize_reference_bitexact():
+@pytest.mark.parametrize("s,nan", [(8, False), (13, True), (16, True)])
+def test_gather_normalize_reference_bitexact(s, nan):
     """Against the Pallas kernel (interpret mode) and the XLA sampler,
-    bit for bit, with repeated ids and an all-zero plane."""
-    vt_i, vt_l = _stacks()
+    bit for bit, with repeated ids, an all-zero plane and labels; at 13²
+    (169 floats, not a multiple of 4: the kernel's general path on the
+    card) and with a NaN in the plane of triple (0, 2, 7), whose normalized
+    plane is all NaN."""
+    vt_i, vt_l = _stacks(s=s)
+    if nan:
+        vt_i[2, 0, 7, s // 2, 1] = np.nan  # (view, scan, slice, ...)
     triples = np.array([[1, 0, 3], [0, 1, 4], [0, 2, 7], [1, 0, 3], [1, 1, 2],
                         [1, 2, 3], [0, 0, 5], [1, 0, 3]], np.int32)
     want_i, want_l = pallas_sample_batch(jnp.asarray(vt_i), jnp.asarray(vt_l),
                                          jnp.asarray(triples), interpret=True)
     xla_i, xla_l = sample_batch_vt(jnp.asarray(vt_i), jnp.asarray(vt_l), jnp.asarray(triples))
-    s = vt_i.shape[-1]
     flat = flat_plane_index(torch.from_numpy(triples).long(), vt_i.shape[1], s)
     np.testing.assert_array_equal(
         flat.numpy(), np.asarray(jax_flat_plane_index(jnp.asarray(triples), vt_i.shape[1], s)))
@@ -88,6 +93,7 @@ def test_gather_normalize_reference_bitexact():
         np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_img)[..., 0])
         np.testing.assert_array_equal(got_l.numpy(), np.asarray(want_lbl)[..., 0])
     assert got_i[0].abs().sum() == 0  # the zero plane passes through
+    assert np.isnan(got_i[2].numpy()).all() == nan
 
 
 def test_normalize_view_slabs_matches_jax():

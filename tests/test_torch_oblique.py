@@ -68,10 +68,15 @@ def test_x_axis_basis_gives_the_volume_slices(s):
     assert torch.equal(oblique_planes(vol, basis[None]), vol)
 
 
-@pytest.mark.parametrize("s,k", [(12, 2), (13, 5)])
+@pytest.mark.parametrize("s,k", [(12, 2), (13, 5), (33, 1)])
 def test_oblique_planes_match_pallas_and_jax_slabs(s, k):
     """Plane by plane against the Pallas kernel in interpret mode, and the
-    whole (k·S,S,S) stack against the JAX package's oblique_slabs, 3e-6."""
+    whole (k·S,S,S) stack against the JAX package's oblique_slabs: 3e-6 up
+    to S = 16, in proportion to S beyond (XLA may contract a coordinate's
+    multiply-add into one FMA; that rounding difference grows with the
+    coordinates' magnitude, up to 2S, and the [0,1) volume passes it on at
+    most 1:1). (33, 1) has ragged 8-voxel tiles."""
+    atol = 3e-6 * max(1.0, s / 16)
     vol = RNG.random((s, s, s)).astype(np.float32)
     bases = jax_fusion.make_view_bases(k)
     got = oblique_planes(_t(vol), _t(bases)).numpy()
@@ -79,12 +84,12 @@ def test_oblique_planes_match_pallas_and_jax_slabs(s, k):
     np.testing.assert_array_equal(got, oblique_planes_reference(_t(vol), _t(bases)).numpy())
     want = np.concatenate([np.asarray(jax_fusion.oblique_slabs(jnp.asarray(vol), jnp.asarray(b)))
                            for b in bases])
-    np.testing.assert_allclose(got, want, rtol=0, atol=3e-6)
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol)
     pallas = jax.jit(lambda v, b, off: oblique_plane_pallas(v, b, off, interpret=True))
     for v in range(k):
         for i in range(s):
             plane = pallas(vol, bases[v], np.float32(i - (s - 1) / 2.0))
-            np.testing.assert_allclose(got[v * s + i], np.asarray(plane), rtol=0, atol=3e-6)
+            np.testing.assert_allclose(got[v * s + i], np.asarray(plane), rtol=0, atol=atol)
 
 
 def test_oblique_planes_checks_its_inputs():
