@@ -52,8 +52,9 @@ Phases, each printing at least one line; any failure exits non-zero:
              bit, timings beside phase 5's, int8-vs-bf16 argmax agreement;
              every conv-chain launch of one chunk replayed against the plain
              version (bit-exact) and timed beside its bound, with its stripe
-             rows and blocks. The kernels line's conv-chain entry averages
-             those launches.
+             rows and blocks. The kernels line has two conv-chain entries, one
+             per TPU function: the row-stripe launches and the whole-image
+             ones, each averaged over that form's launches of the chunk.
 7. oblique — the same model, weights and volume through the 6-view oblique
              path (``num_views=6``): launch counts (one oblique-plane launch
              a volume), probabilities summing to 1 where every view covers
@@ -63,6 +64,25 @@ Phases, each printing at least one line; any failure exits non-zero:
              function); gather-normalize on the 768-plane oblique slab
              (bit-exact, timed); ``ged_volume`` with 4 draws, its value and
              time.
+8. stream  — the same model and weights through the serving path:
+             ``predict_volumes_pipelined`` over 8 distinct seeded 128³ volumes
+             at depth 0 and depth 2, with and without the uint16 entropy:
+             launch counts of the depth-2 stream, depth 2 bit-equal to depth
+             0, each argmax equal to ``evaluate_volume`` with the volume's
+             derived seed, the card's entropy within 1 LSB of the plain f32
+             formula on the same fused volume, the pinned pool settled at
+             depth + 1 buffers a shape; seconds a volume of the stream at
+             each depth beside ``evaluate_volume``'s wall, the device compute
+             and the host enqueue time of one volume; 4 volumes of the 6-view
+             path at depths 0 and 2, bit-equal, timed. Then two subprocesses
+             run ``python -m pmpu_tpu_torch.predict`` in directory mode, on the
+             card and with ``--device cpu`` (3 seeded NIfTI scans of
+             different shapes, a U-Net 8,16 in f32 without TF32 from a
+             reference ``state_dict`` written with ``torch.save``):
+             segmentations byte-equal, source shapes and affines kept,
+             entropy within 1 LSB. Meanwhile ``bench_torch.py`` runs as
+             ``__main__`` in this process at a reduced count; its JSON line
+             must carry every key.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--json PATH`` also writes
@@ -83,6 +103,7 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+START = time.perf_counter()
 
 # published dense peaks of one H100 SXM (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
@@ -724,10 +745,13 @@ def phase_int8(card, task, vol, truth, r_bf16, bf16_summary):
 
     for k in (fused_qchain, gather_normalize_planes):
         k.launches = 0
+    fused_qchain.launches_by_form = dict.fromkeys(fused_qchain.launches_by_form, 0)
     reset_fcomb_counts()
     r = ev.evaluate_volume(vol, truth)
     torch.cuda.synchronize()
     launches = {"fused_qchain": fused_qchain.launches,
+                "fused_qchain_stripes": fused_qchain.launches_by_form["stripes"],
+                "fused_qchain_whole_image": fused_qchain.launches_by_form["whole_image"],
                 "fcomb_mean_decode": fcomb_mean_decode.launches,
                 "gather_normalize_planes": gather_normalize_planes.launches}
     print(f"  launches in one int8 volume: {launches}")
@@ -828,21 +852,36 @@ def phase_int8(card, task, vol, truth, r_bf16, bf16_summary):
     print(f"  [{card}] yardstick, bf16 cuDNN DoubleConv (conv+BN+ReLU x2) ms: "
           f"{ {k: round(v, 3) for k, v in yard.items()} }")
     tmp.cleanup()
-    n_rows = len(rows)
-    ops_t = sum(r_["ops"] for r_ in rows) / PEAK_INT8_OPS
-    bytes_t = sum(r_["bytes"] for r_ in rows) / PEAK_HBM_BYTES
-    kernel = {"name": "fused_qchain", "route": "cuda",
-              "source": "pmpu_tpu_torch/ops/cuda/csrc/qconv.cu",
-              "replaces": "pmpu_tpu/ops/pallas/qconv.py:151",
-              "launches": launches["fused_qchain"], "max_abs_err": max_err,
-              "ms": sum(r_["ms"] for r_ in rows) / n_rows,
-              "plain_ms": sum(r_["plain_ms"] for r_ in rows) / n_rows,
-              "bound_ms": sum(r_["bound_ms"] for r_ in rows) / n_rows,
-              "bound_by": "operations" if ops_t > bytes_t else "bytes", "library_ms": None}
+    # one kernels entry per TPU function: the row-stripe launches
+    # (_fused_qchain_tiled) and the whole-image ones (_fused_qchain)
+    kernels = []
+    for whole, name, line, count in (
+            (False, "fused_qchain", 151, "fused_qchain_stripes"),
+            (True, "fused_qchain_whole_image", 216, "fused_qchain_whole_image")):
+        form = [r_ for r_ in rows if r_["whole_image"] == whole]
+        require(form, f"int8: no {count} launch among the first chunk's chains")
+        n_form = len(form)
+        ops_t = sum(r_["ops"] for r_ in form) / PEAK_INT8_OPS
+        bytes_t = sum(r_["bytes"] for r_ in form) / PEAK_HBM_BYTES
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "pmpu_tpu_torch/ops/cuda/csrc/qconv.cu",
+                        "replaces": f"pmpu_tpu/ops/pallas/qconv.py:{line}",
+                        "launches": launches[count], "max_abs_err": max_err,
+                        "ms": sum(r_["ms"] for r_ in form) / n_form,
+                        "plain_ms": sum(r_["plain_ms"] for r_ in form) / n_form,
+                        "bound_ms": sum(r_["bound_ms"] for r_ in form) / n_form,
+                        "bound_by": "operations" if ops_t > bytes_t else "bytes",
+                        "library_ms": None, "first_chunk_launches": n_form})
+    print(f"  [{card}] conv chain, mean of the first chunk's {len(rows)} launches: "
+          f"{sum(r_['ms'] for r_ in rows) / len(rows):.4f} ms, plain "
+          f"{sum(r_['plain_ms'] for r_ in rows) / len(rows):.3f} ms, bound "
+          f"{sum(r_['bound_ms'] for r_ in rows) / len(rows):.4f} ms; stripes "
+          f"{kernels[0]['ms']:.4f} ms ({kernels[0]['first_chunk_launches']} launches), whole "
+          f"image {kernels[1]['ms']:.4f} ms ({kernels[1]['first_chunk_launches']} launches)")
     summary = {"calibration_s": cal_s, "launches": launches, "wall_s_per_volume": walls,
                "event_ms_per_volume": spans, "stage_ms": stages, "dice": r["dice"].tolist(),
                "argmax_agreement_with_bf16": agree, "chains": rows, "yardstick_bf16_ms": yard}
-    return kernel, summary
+    return kernels, summary
 
 
 def covered(bases, s):
@@ -1000,6 +1039,255 @@ def phase_oblique(card, task, vol, truth):
     return kernel, summary
 
 
+STREAM_SEED = 7
+BENCH_KEYS = (
+    "metric", "value", "unit", "vs_baseline", "min_s", "median_s", "repeat_times_s",
+    "device_compute_s_per_volume", "device_mfu", "stream_s_per_volume", "stream_round_times_s",
+    "stream_volumes", "stream_vs_baseline", "stream_mfu", "flops_per_volume", "achieved_tflops",
+    "peak_tflops", "mfu", "device", "bf16", "eval_batch", "quantize", "input_dtype",
+)
+
+
+def plain_entropy_u16(p: torch.Tensor, n_classes: int) -> torch.Tensor:
+    """The uint16 entropy's formula in plain f32 on the CPU, as int32."""
+    scale = float(np.log(n_classes))
+    ent = -(p * torch.log(p + 1e-12)).sum(-1)
+    return torch.round(ent.clamp(0.0, scale) * (65535.0 / scale)).to(torch.int32)
+
+
+def entropy_lsb(ent: np.ndarray, n_classes: int = 3) -> np.ndarray:
+    """A fetched (dequantized f32) entropy back in uint16 steps, as int64."""
+    return np.rint(ent.astype(np.float64) * (65535.0 / np.log(n_classes))).astype(np.int64)
+
+
+def write_scans(directory):
+    """Three seeded NIfTI scans of different shapes and affines (common
+    cube 24); returns {name: (shape, affine)}."""
+    from pmpu_tpu_torch.data import nifti
+
+    rng = np.random.default_rng(8)
+    scans = {}
+    for i, shape in enumerate(((20, 24, 18), (24, 17, 22), (23, 21, 24))):
+        affine = np.diag([0.9 + 0.2 * i, 1.1, 1.5 - 0.25 * i, 1.0])
+        affine[:3, 3] = (-10.0 * i, 3.5, 20.0)
+        img = rng.random(shape).astype(np.float32)
+        img[4:14, 5:15, 3:13] += 0.6
+        name = f"scan{i}.nii"
+        nifti.save(os.path.join(directory, name), img, affine)
+        scans[name] = (shape, nifti.read_header(os.path.join(directory, name)).affine)
+    return scans
+
+
+def run_all(procs, timeout):
+    """Wait for every (name, Popen); raise with the stderr of any that
+    failed. Each is killed if it is still running when this returns."""
+    try:
+        for name, proc in procs.items():
+            _, err = proc.communicate(timeout=timeout)
+            require(proc.returncode == 0, f"{name} exited {proc.returncode}:\n{err[-4000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def run_bench(env) -> str:
+    """``bench_torch.py`` run as ``__main__`` in this process (its kernels
+    are built and loaded already) with ``env`` set; returns its one line."""
+    import contextlib
+    import io
+    import runpy
+
+    saved = {k: os.environ.get(k) for k in env}
+    out = io.StringIO()
+    os.environ.update(env)
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_path(os.path.join(ROOT, "bench_torch.py"), run_name="__main__")
+    except SystemExit as e:
+        require(e.code in (0, None), f"bench_torch.py exited {e.code}")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    lines = out.getvalue().strip().splitlines()
+    require(len(lines) == 1, f"bench_torch.py printed {len(lines)} lines: {out.getvalue()!r}")
+    return lines[0]
+
+
+def phase_stream(card, task):
+    from pmpu_tpu_torch import VolumeEvaluator
+    from pmpu_tpu_torch.data import nifti
+    from pmpu_tpu_torch.inference.engine import derive_seed, eval_chunk_plan
+    from pmpu_tpu_torch.ops.cuda.fcomb_mean import fcomb_mean_decode
+    from pmpu_tpu_torch.ops.cuda.slice_gather import gather_normalize_planes
+
+    print("phase 8: stream (the same model, 8 distinct 128³ volumes through "
+          "predict_volumes_pipelined at depths 0 and 2; the predict CLI; bench_torch.py)")
+    n_vol = 8
+    ev = VolumeEvaluator(task, n_samples=5, eval_batch=0, input_dtype="uint8")
+    vols = [synthetic_volume(128, seed=20 + i)[0] for i in range(n_vol)]
+    ev.predict_volumes_pipelined(vols[:3], pipeline_depth=2, want_entropy=True)  # warm-up
+    runs, stream_s, launches = {}, {}, None
+    for want_entropy in (True, False):
+        for depth in (0, 2):
+            main_path = depth == 2 and not want_entropy
+            if main_path:
+                reset_fcomb_counts()
+                gather_normalize_planes.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[want_entropy, depth] = ev.predict_volumes_pipelined(
+                vols, seed=STREAM_SEED, pipeline_depth=depth, want_entropy=want_entropy)
+            stream_s[f"depth {depth}" + (", entropy" if want_entropy else "")] = \
+                (time.perf_counter() - t0) / n_vol
+            if main_path:
+                launches = {"fcomb_mean_decode": fcomb_mean_decode.launches,
+                            "gather_normalize_planes": gather_normalize_planes.launches}
+    cube = vols[0].shape[0]
+    chunks = eval_chunk_plan(3 * cube, cube, cube, ev.eval_batch)[1]  # fcomb launches a volume
+    print(f"  launches in the depth-2 stream of {n_vol} volumes: {launches}")
+    require(launches == {"fcomb_mean_decode": chunks * n_vol, "gather_normalize_planes": n_vol},
+            f"stream: launches {launches}")
+    require_fcomb_route(chunks * n_vol, f"{n_vol}-volume stream's")
+    for want_entropy in (True, False):
+        for i, (a, b) in enumerate(zip(runs[want_entropy, 0], runs[want_entropy, 2])):
+            for part_a, part_b in zip(*((x if want_entropy else (x,)) for x in (a, b))):
+                require(part_a.dtype == np.float32 and np.array_equal(part_a, part_b),
+                        f"stream: volume {i} differs between depth 0 and depth 2"
+                        + (" (entropy on)" if want_entropy else ""))
+    for i in range(n_vol):
+        require(np.array_equal(runs[True, 0][i][0], runs[False, 0][i]),
+                f"stream: volume {i}'s argmax depends on want_entropy")
+    slots = {f"{list(k[0])} {k[1]}": n for k, n in ev._pool.allocated.items()}
+    require(all(n <= 3 for n in slots.values()) and 3 in slots.values(),
+            f"stream: the pinned pool did not settle at depth + 1 = 3 buffers a shape: {slots}")
+    print(f"  depth 2 equals depth 0 bit for bit (argmax and entropy, {n_vol} volumes); "
+          f"pinned buffers by shape: {slots}")
+
+    walls = []
+    for i in range(n_vol):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = ev.evaluate_volume(vols[i], seed=derive_seed(STREAM_SEED, i), return_views=False)
+        walls.append(time.perf_counter() - t0)
+        require(np.array_equal(r["argmax"], runs[False, 2][i]),
+                f"stream: volume {i} differs from evaluate_volume with its seed")
+        if i == 0:
+            with torch.inference_mode():
+                got = ev._entropy(r["fused"]).cpu().to(torch.int32)
+            want = plain_entropy_u16(r["fused"].cpu(), 3)
+            lsb = (got - want).abs().max().item()
+            require(lsb <= 1, f"stream: the card's uint16 entropy is {lsb} LSB off the formula")
+            ent = runs[True, 2][0][1]
+            deq_lsb = int(np.abs(entropy_lsb(ent) - want.numpy()).max())
+            require(deq_lsb <= 1, f"stream: the fetched entropy is {deq_lsb} LSB off the formula")
+            require(0.0 <= ent.min() and ent.max() <= np.log(3) + 1e-6, "entropy out of [0, ln 3]")
+    print(f"  each stream argmax equals evaluate_volume(seed=derive_seed({STREAM_SEED}, i)); "
+          f"the card's uint16 entropy within {lsb} LSB of the plain f32 formula, the fetched "
+          f"one within {deq_lsb} LSB")
+
+    with torch.inference_mode():
+        up = ev._upload(vols[0])
+        ev._predict_volume(up, 1)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(3):
+            ev._predict_volume(up, 2 + i)
+        end.record()
+        end.synchronize()
+    device_ms = start.elapsed_time(end) / 3
+    enqueue_ms = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = ev._dispatch_volume(vols[i], seed=i)
+        enqueue_ms.append((time.perf_counter() - t0) * 1e3)
+        ev._fetch_seg(h)
+    # the 6-view oblique path through the stream: about 1,000 small launches
+    # a volume (the resample back to the grid) ahead of the fetch
+    ev6 = VolumeEvaluator(task, n_samples=5, eval_batch=0, num_views=6, input_dtype="uint8")
+    ev6.predict_volumes_pipelined(vols[:2], pipeline_depth=2)  # warm-up
+    six, six_s = {}, {}
+    for depth in (0, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        six[depth] = ev6.predict_volumes_pipelined(vols[:4], seed=STREAM_SEED, pipeline_depth=depth)
+        six_s[f"depth {depth}"] = (time.perf_counter() - t0) / 4
+    require(all(np.array_equal(a, b) for a, b in zip(six[0], six[2])),
+            "stream: a 6-view volume differs between depth 0 and depth 2")
+    print(f"  [{card}] 6-view stream s/volume {six_s} (4 volumes; depth 2 equals depth 0)")
+    print(f"  [{card}] stream s/volume {stream_s}; evaluate_volume wall s/volume {walls} "
+          f"(min {min(walls):.4f}); device compute {device_ms:.3f} ms/volume (CUDA events, "
+          f"3 chained _predict_volume); host enqueue of one volume {enqueue_ms} ms")
+
+    # the predict CLI in directory mode, on the card and on the CPU, from a
+    # reference torch state_dict; bench_torch.py at a reduced count, beside
+    # them (its numbers here are not kept)
+    from pmpu_tpu_torch import make_task
+
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        d = tmp.name
+        os.makedirs(os.path.join(d, "in"))
+        scans = write_scans(os.path.join(d, "in"))
+        unet = make_task("unet", n_classes=3, num_filters=(8, 16), device="cpu", seed=3)
+        torch.save(unet.net.state_dict(), os.path.join(d, "unet.pt"))
+        procs = {}
+        for dev in ("cuda", "cpu"):
+            cmd = [sys.executable, "-m", "pmpu_tpu_torch.predict", "-m", "unet",
+                   "-f", os.path.join(d, "unet.pt"), "--n-classes", "3", "--num-filters", "8,16",
+                   "-i", os.path.join(d, "in"), "-o", os.path.join(d, f"seg_{dev}"),
+                   "--uncertainty", os.path.join(d, f"ent_{dev}"), "--device", dev]
+            # f32 convolutions without TF32, as in phase 4
+            env = {**os.environ, "NVIDIA_TF32_OVERRIDE": "0"}
+            procs[f"predict --device {dev}"] = subprocess.Popen(
+                cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        t0 = time.perf_counter()
+        try:
+            line = run_bench({"BENCH_REPEATS": "2", "BENCH_STREAM": "4",
+                              "BENCH_STREAM_ROUNDS": "1", "BENCH_DEVICE_REPEATS": "2"})
+        finally:
+            run_all(procs, timeout=600)
+        sub_s = time.perf_counter() - t0
+        ent_err = 0
+        for name, (shape, affine) in scans.items():
+            seg = {dev: os.path.join(d, f"seg_{dev}", name) for dev in ("cuda", "cpu")}
+            with open(seg["cuda"], "rb") as f, open(seg["cpu"], "rb") as g:
+                require(f.read() == g.read(), f"predict CLI: {name} differs between card and CPU")
+            hdr = nifti.read_header(seg["cuda"])
+            require(hdr.shape == shape and np.array_equal(hdr.affine, affine),
+                    f"predict CLI: {name} has shape {hdr.shape} and affine {hdr.affine}, "
+                    f"not the source's {shape}")
+            labels = nifti.load(seg["cuda"])
+            require(set(np.unique(labels)) <= {0.0, 1.0, 2.0}, f"predict CLI: {name} labels")
+            ents = [entropy_lsb(nifti.load(os.path.join(d, f"ent_{dev}", name)))
+                    for dev in ("cuda", "cpu")]
+            ent_err = max(ent_err, int(np.abs(ents[0] - ents[1]).max()))
+        require(ent_err <= 1, f"predict CLI: entropy differs by {ent_err} LSB between card and CPU")
+    finally:
+        tmp.cleanup()
+    print(f"  predict CLI (U-Net 8,16, f32, reference state_dict, 3 scans, cube 24): "
+          f"segmentations byte-equal on the card and the CPU, source shapes and affines kept, "
+          f"entropy within {ent_err} LSB; subprocesses {sub_s:.1f} s")
+    bench = json.loads(line)
+    missing = [k for k in BENCH_KEYS if k not in bench]
+    require(not missing, f"bench_torch.py: keys missing from its line: {missing}")
+    require(bench["stream_volumes"] == 4 and len(bench["repeat_times_s"]) == 2,
+            f"bench_torch.py: {line}")
+    print(f"  bench_torch.py (BENCH_REPEATS=2, BENCH_STREAM=4, BENCH_STREAM_ROUNDS=1, "
+          f"BENCH_DEVICE_REPEATS=2, beside the CLI): {line}")
+    return {"stream_s_per_volume": stream_s, "six_view_stream_s_per_volume": six_s,
+            "evaluate_wall_s_per_volume": walls,
+            "device_ms_per_volume": device_ms, "host_enqueue_ms": enqueue_ms,
+            "launches": launches, "pinned_buffers": slots, "entropy_lsb": lsb,
+            "fetched_entropy_lsb": deq_lsb, "cli_entropy_lsb": ent_err, "bench_line": bench}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write all measurements to this file")
@@ -1024,23 +1312,37 @@ def main() -> int:
     print("phase 2: build")
     t0 = time.perf_counter()
     built = _build.build()
-    print(f"  built {sorted(built)} in {time.perf_counter() - t0:.1f} s "
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    print(f"  built {sorted(built)} in {build_s:.1f} s "
           f"({ {k: round(v[0], 1) for k, v in built.items()} })")
     for name, (_, log) in built.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
+    clock = [("start", t0)]
     errs = phase_kernels()
     phase_qconv()
     phase_oblique_kernel()
+    clock.append(("kernels", time.perf_counter()))
     phase_parity()
+    clock.append(("parity", time.perf_counter()))
     kernels, summary, (task, vol, truth, r_bf16) = phase_full(card)
+    clock.append(("full", time.perf_counter()))
     summary["phase3_max_abs_err"] = errs
-    kernel, summary["int8"] = phase_int8(card, task, vol, truth, r_bf16, summary)
-    kernels.append(kernel)
+    qchain_kernels, summary["int8"] = phase_int8(card, task, vol, truth, r_bf16, summary)
+    kernels += qchain_kernels
+    clock.append(("int8", time.perf_counter()))
     kernel, summary["oblique"] = phase_oblique(card, task, vol, truth)
     kernels.append(kernel)
+    clock.append(("oblique", time.perf_counter()))
+    summary["stream"] = phase_stream(card, task)
+    clock.append(("stream", time.perf_counter()))
+    summary["phase_s"] = {name: b - a for (_, a), (name, b) in zip(clock, clock[1:])}
+    summary["phase_s"]["build"] = build_s
+    print(f"seconds by phase: { {k: round(v, 1) for k, v in summary['phase_s'].items()} }; "
+          f"from the start {time.perf_counter() - START:.1f} s")
     gather = next(k for k in kernels if k["name"] == "gather_normalize_planes")
     gather.update({f"{k}_768": v for k, v in summary["oblique"]["gather_768"].items()})
     if args.json:

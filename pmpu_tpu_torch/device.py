@@ -14,7 +14,7 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "no CUDA device (torch.cuda.is_available() is False); the port "
             "runs on the GPU by default — pass device='cpu' for the plain "
-            "PyTorch path"
+            "PyTorch path (the CLIs: --device cpu; bench_torch.py: BENCH_DEVICE=cpu)"
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")

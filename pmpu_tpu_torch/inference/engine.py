@@ -1,5 +1,5 @@
 """Whole-volume multi-view inference (counterpart of
-``pmpu_tpu/inference/engine.py:47-115, 117-301, 388-592, 844-879``).
+``pmpu_tpu/inference/engine.py:47-115, 117-301, 388-592, 844-879, 970-1012``).
 
 One volume's path:
 
@@ -17,6 +17,15 @@ The slice axis is a batch axis. PyTorch runs eagerly, so the chunk loop is
 a Python loop; chunk ``i`` draws its prior samples from a generator seeded
 from ``(seed, i)``, the counterpart of ``fold_in(key, i)``. The draws differ
 from JAX's: parity with the JAX package is held with ``mean_z=True``.
+
+A volume is dispatched (``_dispatch_volume``: every launch enqueued, the
+host never waits) and then fetched (``_fetch_seg``, ``_fetch_entropy``).
+The outputs the host reads (the packed argmax, Dice, the uint16 entropy)
+are copied on a side CUDA stream, behind an event of the compute stream,
+into pinned host buffers that a pool reuses; the fetch waits on the copy's
+event. ``predict_volumes_pipelined`` dispatches volume i+1 before it
+fetches volume i, so the host work of one volume (the upload's
+quantization, the fetches) runs while the card computes another.
 """
 
 from __future__ import annotations
@@ -24,10 +33,12 @@ from __future__ import annotations
 import json
 import logging
 import os
+from collections import deque
 from typing import Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from pmpu_tpu_torch.device import resolve_device
 from pmpu_tpu_torch.models import quantized as qz
@@ -80,12 +91,48 @@ def _unpack2bit(p: np.ndarray) -> np.ndarray:
     return bits.reshape(p.shape[:-1] + (p.shape[-1] * 4,))
 
 
+def derive_seed(seed: int, i: int) -> int:
+    """A 63-bit seed derived from (seed, i), the counterpart of
+    ``fold_in(key, i)``: chunk ``i`` of a volume and volume ``i`` of a
+    stream take theirs from it."""
+    state = np.random.SeedSequence([seed, i]).generate_state(2, np.uint32)
+    return (int(state[0]) << 31) ^ int(state[1])
+
+
 def chunk_generator(device: torch.device, seed: int, i: int) -> torch.Generator:
     """The generator of chunk ``i``'s prior draws, seeded from (seed, i)."""
-    state = np.random.SeedSequence([seed, i]).generate_state(2, np.uint32)
     g = torch.Generator(device=device)
-    g.manual_seed((int(state[0]) << 31) ^ int(state[1]))
+    g.manual_seed(derive_seed(seed, i))
     return g
+
+
+class HostPool:
+    """Host buffers of the transfers, reused, keyed by (shape, dtype):
+    pinned for a CUDA evaluator, so that each copy is asynchronous and no
+    buffer is freed on the path (freeing pinned memory synchronizes the
+    device). A buffer taken is the caller's until it is given back, with
+    the event after which it may be written again; ``take`` returns the
+    first free buffer whose event has completed, else allocates one. A
+    stream of depth d settles at d + 1 buffers of each key."""
+
+    def __init__(self, pinned: bool):
+        self.pinned = pinned
+        self.allocated = {}  # (shape, dtype) → buffers made
+        self._free = {}      # (shape, dtype) → [(buffer, event or None)]
+
+    def take(self, shape, dtype) -> torch.Tensor:
+        key = (tuple(shape), dtype)
+        free = self._free.setdefault(key, [])
+        for j, (buf, ready) in enumerate(free):
+            if ready is None or ready.query():
+                del free[j]
+                return buf
+        self.allocated[key] = self.allocated.get(key, 0) + 1
+        with torch.inference_mode(False):  # a normal tensor: writable in and out of the mode
+            return torch.empty(key[0], dtype=dtype, pin_memory=self.pinned)
+
+    def give(self, buf: torch.Tensor, ready=None) -> None:
+        self._free.setdefault((tuple(buf.shape), buf.dtype), []).append((buf, ready))
 
 
 class VolumeEvaluator:
@@ -156,15 +203,26 @@ class VolumeEvaluator:
         self._qvars = None         # the int8 tree, cached by the weights' identity
         self._qvars_src = None
         self._qvars_calibrated = False
-        self._pack_classes = max(task.n_classes, 2) <= 4
+        n_classes = max(task.n_classes, 2)
+        self._pack_classes = n_classes <= 4
+        # entropy ∈ [0, ln C] fetched as uint16 fixed point (1.7e-5 at C=3)
+        self._entropy_scale = float(np.log(n_classes))
         self._ged_evaluators = {}  # n_ged_samples → per-sample evaluator
+        cuda = self.device.type == "cuda"
+        self._pool = HostPool(pinned=cuda)
+        self._side = torch.cuda.Stream(self.device) if cuda else None  # D2H copies
 
     # ------------------------------------------------------------------
     def _to_device(self, x) -> torch.Tensor:
+        """Host → device through a pooled pinned buffer, asynchronous; the
+        buffer is free again once the copy has run. CPU: passes through."""
         t = torch.from_numpy(x) if isinstance(x, np.ndarray) else x
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
+        if self.device.type != "cuda":
+            return t
+        buf = self._pool.take(t.shape, t.dtype).copy_(t)
+        out = buf.to(self.device, non_blocking=True)
+        self._pool.give(buf, torch.cuda.current_stream(self.device).record_event())
+        return out
 
     def _upload(self, vol) -> torch.Tensor:
         """Host → device image upload in the wire dtype. A tensor already on
@@ -332,20 +390,30 @@ class VolumeEvaluator:
         carries a leading n_samples axis: one fused volume per prior draw
         from one model pass (the GED path)."""
         vol = vol.float()
-        slabs = view_slabs(vol) if self._bases is None else oblique_slabs(vol, self._bases)
-        probs = self._to_probs(self._chunked_logits(normalize_slabs(slabs), seed, per_sample))
         if self._bases is None:
-            views = reassemble_views(probs)
+            with record_function("slice_slabs"):
+                slabs = normalize_slabs(view_slabs(vol))
+        else:
+            with record_function("oblique_slabs"):
+                slabs = normalize_slabs(oblique_slabs(vol, self._bases))
+        with record_function("model"):
+            probs = self._to_probs(self._chunked_logits(slabs, seed, per_sample))
+        if self._bases is None:
+            with record_function("reassemble"):
+                views = reassemble_views(probs)
         else:
             s = vol.shape[0]
             views = []
-            for i, basis in enumerate(self._bases):
-                pv = probs[..., i * s : (i + 1) * s, :, :, :]
-                if per_sample:
-                    views.append(torch.stack([resample_view_to_grid(p, basis) for p in pv]))
-                else:
-                    views.append(resample_view_to_grid(pv, basis))
-        return tuple(views) + (fuse_mean(views),)
+            with record_function("splat_back"):
+                for i, basis in enumerate(self._bases):
+                    pv = probs[..., i * s : (i + 1) * s, :, :, :]
+                    if per_sample:
+                        views.append(torch.stack([resample_view_to_grid(p, basis) for p in pv]))
+                    else:
+                        views.append(resample_view_to_grid(pv, basis))
+        with record_function("fuse"):
+            fused = fuse_mean(views)
+        return tuple(views) + (fused,)
 
     def _dice_report(self, volumes, truth) -> torch.Tensor:
         """Per-class (1..C-1) Dice of each view volume and the fusion:
@@ -356,29 +424,130 @@ class VolumeEvaluator:
             for v in volumes
         ])
 
-    # ------------------------------------------------------------------
+    def _entropy(self, p: torch.Tensor) -> torch.Tensor:
+        """Predictive entropy of (..., C) probabilities as uint16 fixed
+        point: round(clip(-Σ p·log(p + 1e-12), 0, ln C) · 65535 / ln C) in
+        f32. The clip comes before the cast: oblique-path boundary voxels
+        can sum to < 1, where the entropy may pass ln C and would wrap."""
+        ent = -(p * torch.log(p + 1e-12)).sum(-1)
+        scale = self._entropy_scale
+        return torch.round(ent.clamp(0.0, scale) * (65535.0 / scale)).to(torch.uint16)
+
+    def _copy_to_host(self, outputs: dict) -> dict:
+        """Start the copies of ``outputs`` (device tensors) into pooled host
+        buffers: on CUDA on the side stream, after an event of the compute
+        stream, each source kept from reuse until its copy has run
+        (``record_stream``). Returns the buffers and the event of the
+        copies' end under ``"copied"`` (None on the CPU)."""
+        host = {}
+        if self._side is None:
+            for name, t in outputs.items():
+                host[name] = self._pool.take(t.shape, t.dtype).copy_(t)
+            host["copied"] = None
+            return host
+        self._side.wait_event(torch.cuda.current_stream(self.device).record_event())
+        with torch.cuda.stream(self._side):
+            for name, t in outputs.items():
+                host[name] = self._pool.take(t.shape, t.dtype).copy_(t, non_blocking=True)
+                t.record_stream(self._side)
+        host["copied"] = self._side.record_event()
+        return host
+
+    def _fetch(self, h: dict, name: str, convert) -> np.ndarray:
+        """``convert`` (which must return a new array) of the host copy of
+        ``h[name]``, once the copies are done; its buffer goes back to the
+        pool, so each output is fetched once."""
+        buf = h.pop(name)
+        if h["copied"] is not None:
+            h["copied"].synchronize()
+        out = convert(buf.numpy())
+        self._pool.give(buf)
+        return out
+
+    def _fetch_seg(self, h: dict) -> np.ndarray:
+        """The fused argmax as host f32 (the reference's NIfTI export
+        dtype), sent 2-bit packed when the classes fit."""
+        if "seg_packed" in h:
+            return self._fetch(h, "seg_packed", lambda p: _unpack2bit(p).astype(np.float32))
+        return self._fetch(h, "argmax_u8", lambda a: a.astype(np.float32))
+
+    def _fetch_entropy(self, h: dict) -> np.ndarray:
+        """The uint16 entropy, dequantized to host f32."""
+        return self._fetch(h, "entropy",
+                           lambda q: q.astype(np.float32) * (self._entropy_scale / 65535.0))
+
+    @torch.inference_mode()
+    def _dispatch_volume(self, img_vol, truth_vol=None, seed: int = 0,
+                         want_entropy: bool = False) -> dict:
+        """Enqueue one volume: upload, the model, the argmax (2-bit packed
+        when the classes fit), Dice with a truth volume, the uint16 entropy
+        when asked, and the copies of those to the host. The host does not
+        wait for the card (only the first int8 volume does, to calibrate).
+        Returns a handle: 'fused' and 'views' (device tensors) and the host
+        outputs that ``_fetch_seg``, ``_fetch_entropy`` and ``_fetch`` read."""
+        if self.quantize:
+            self._maybe_quantize(sample_vol=img_vol)
+        with record_function("upload"):
+            vol = self._upload(img_vol)
+        outs = self._predict_volume(vol, seed)
+        fused = outs[-1]
+        seg = torch.argmax(fused, dim=-1).to(torch.uint8)
+        dev = {}
+        if self._pack_classes and fused.shape[2] % 4 == 0:
+            dev["seg_packed"] = _pack2bit(seg)
+        else:
+            dev["argmax_u8"] = seg
+        if truth_vol is not None:
+            dev["dice"] = self._dice_report(outs, self._upload_truth(truth_vol))
+        if want_entropy:
+            dev["entropy"] = self._entropy(fused)
+        return {"fused": fused, "views": outs[:-1], **self._copy_to_host(dev)}
+
     @torch.inference_mode()
     def evaluate_volume(self, img_vol, truth_vol=None, seed: int = 0,
                         return_views: bool = True) -> dict:
-        """Run one volume. Returns 'fused' probs (device tensor), 'argmax'
-        (host f32, fetched 2-bit packed when the classes fit), 'views' (the
-        num_views per-view volumes) when ``return_views``, and 'dice' (host
+        """Run one volume: a dispatch, then its fetches. Returns 'fused'
+        probs (device tensor), 'argmax' (host f32), 'views' (the num_views
+        per-view volumes) when ``return_views``, and 'dice' (host
         (num_views+1, C-1)) when a truth volume is given."""
-        if self.quantize:
-            self._maybe_quantize(sample_vol=img_vol)
-        outs = self._predict_volume(self._upload(img_vol), seed)
-        fused = outs[-1]
-        seg = torch.argmax(fused, dim=-1).to(torch.uint8)
-        if self._pack_classes and fused.shape[2] % 4 == 0:
-            argmax = _unpack2bit(_pack2bit(seg).cpu().numpy())
-        else:
-            argmax = seg.cpu().numpy()
-        result = {"fused": fused, "argmax": argmax.astype(np.float32)}
+        h = self._dispatch_volume(img_vol, truth_vol, seed)
+        result = {"fused": h["fused"], "argmax": self._fetch_seg(h)}
         if return_views:
-            result["views"] = outs[:-1]
+            result["views"] = h["views"]
         if truth_vol is not None:
-            result["dice"] = self._dice_report(outs, self._upload_truth(truth_vol)).cpu().numpy()
+            result["dice"] = self._fetch(h, "dice", np.copy)
         return result
+
+    @torch.inference_mode()
+    def predict_volumes_pipelined(self, volumes, seed: int = 0, pipeline_depth: int = 2,
+                                  want_entropy: bool = False) -> list:
+        """The serving path: the fused argmax of each volume of a stream (an
+        iterable; a generator is read lazily, about ``pipeline_depth``
+        volumes held at once) as host f32, or (argmax, entropy) pairs with
+        ``want_entropy``. Volume i+1..i+depth are dispatched before volume
+        i is fetched; volume i takes the seed ``derive_seed(seed, i)``, so
+        every depth gives the bits of depth 0."""
+        depth = max(0, pipeline_depth)
+        pending = deque()
+        results = []
+
+        def drain():
+            h = pending.popleft()
+            seg = self._fetch_seg(h)
+            results.append((seg, self._fetch_entropy(h)) if want_entropy else seg)
+
+        for i, vol in enumerate(volumes):
+            h = self._dispatch_volume(vol, seed=derive_seed(seed, i), want_entropy=want_entropy)
+            # an in-flight volume keeps only its host copies: its views and
+            # fused volume go back to the allocator now
+            h.pop("views")
+            h.pop("fused")
+            pending.append(h)
+            while len(pending) > depth:
+                drain()
+        while pending:
+            drain()
+        return results
 
     @torch.inference_mode()
     def ged_volume(self, img_vol, truth_vol, n_ged_samples: int = 4, seed: int = 0) -> float:

@@ -320,6 +320,9 @@ def fused_qchain(x, layers, out_dtype=torch.bfloat16, tile_h=None, *, x_scale=No
 
 
 fused_qchain.launches = 0  # kernel launches since the last reset
+# the same, by launch form: row stripes (the JAX package's
+# ``_fused_qchain_tiled``) or the whole image as one stripe (``_fused_qchain``)
+fused_qchain.launches_by_form = {"stripes": 0, "whole_image": 0}
 
 
 def _launch(x, layers, metas, out_dtype, tile_h, halo, *, x_scale, x2, x2_scale, out_xs,
@@ -372,6 +375,7 @@ def _launch(x, layers, metas, out_dtype, tile_h, halo, *, x_scale, x2, x2_scale,
     _build.check(lib, rc, f"fused_qchain (N={n}, H={h}, W={w_}, layers={ints}, th={th}, "
                           f"buffers={buf}, ring slots={slots})")
     fused_qchain.launches += 1
+    fused_qchain.launches_by_form["whole_image" if th >= h else "stripes"] += 1
     del keep
     return out
 

@@ -3,6 +3,7 @@ entry points refuse to run on the CPU unless asked, and importing its
 kernel modules builds and loads nothing."""
 
 import ast
+import os
 import pathlib
 import subprocess
 import sys
@@ -28,16 +29,17 @@ def _run(code: str) -> str:
 
 def test_import_pulls_in_no_jax():
     """In a fresh interpreter (tests/conftest.py imports jax here), every
-    port module imports without jax, flax, ml_dtypes or pmpu_tpu."""
+    port module and ``bench_torch.py`` import without jax, flax, optax,
+    ml_dtypes or pmpu_tpu."""
     code = (
         "import importlib, sys\n"
-        f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        f"for m in {MODULES + ['bench_torch']!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'ml_dtypes', 'pmpu_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'chex', 'ml_dtypes', 'pmpu_tpu'))\n"
         "print(len(sys.modules), bad)\n"
     )
     assert _run(code).split()[-1] == "[]"
-    assert len(MODULES) >= 15
+    assert len(MODULES) >= 22
 
 
 def _imports(path):
@@ -49,11 +51,12 @@ def _imports(path):
 
 
 def test_source_scan_finds_no_jax_import():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
     for f in files:
         for name in _imports(f):
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "flax", "ml_dtypes", "pmpu_tpu", "tests"), (f, name)
+            assert root not in ("jax", "jaxlib", "flax", "optax", "chex", "ml_dtypes", "pmpu_tpu",
+                                "tests"), (f, name)
 
 
 def test_entry_points_need_cuda_or_an_explicit_cpu():
@@ -69,6 +72,16 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
         VolumeEvaluator(port_task(), num_views=6)
     with pytest.raises(ValueError, match="device must be"):
         VolumeEvaluator(port_task(), device="meta")
+    # the predict CLI and the bench: the card unless --device cpu / BENCH_DEVICE=cpu
+    from pmpu_tpu_torch.predict import main as predict_main
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        predict_main(["-i", "scan.nii"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        predict_main(["-i", "scan.nii", "--device", "cuda"])
+    out = subprocess.run([sys.executable, "bench_torch.py"], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300, env={**os.environ, "BENCH_DEVICE": "cuda"})
+    assert out.returncode != 0 and "no CUDA device" in out.stderr and out.stdout == ""
 
 
 def test_kernel_modules_build_and_load_nothing_on_cpu():
