@@ -31,11 +31,13 @@ Phases, each printing at least one line; any failure exits non-zero:
              planes leave the cube, the golden-spiral views, the tilted one
              stretched 3x), and at S = 128 with the tilted view alone and
              with 6 views.
-4. parity  — the whole path (probunet, filters 8,16, 32³, mean_z, f32, TF32
-             off) on the card against the same weights on the CPU; then the
-             same for the int8 path (``quantize="int8"``), the CPU run's
-             scale file loaded on the card, and for the 6-view oblique path
-             (``num_views=6``).
+4. parity  — the whole path (probunet, filters 8,16, 32³, mean_z, f32) on
+             the card against the same weights on the CPU, with cuDNN's TF32
+             left at PyTorch's default (on): the port's f32 convolutions turn
+             it off themselves; the same run with that guard patched out
+             prints the mismatch TF32 would cause; then the same for the
+             int8 path (``quantize="int8"``), the CPU run's scale file loaded
+             on the card, and for the 6-view oblique path (``num_views=6``).
 5. full    — the main path at full width: probunet 64..1024, latent 6,
              3 classes, fcomb depth 4, bf16, 5 samples, 3 chunks of 128
              slices, one seeded 128³ volume on the uint8 wire, through
@@ -77,12 +79,29 @@ Phases, each printing at least one line; any failure exits non-zero:
              path at depths 0 and 2, bit-equal, timed. Then two subprocesses
              run ``python -m pmpu_tpu_torch.predict`` in directory mode, on the
              card and with ``--device cpu`` (3 seeded NIfTI scans of
-             different shapes, a U-Net 8,16 in f32 without TF32 from a
-             reference ``state_dict`` written with ``torch.save``):
+             different shapes, a U-Net 8,16 in f32 from a reference
+             ``state_dict`` written with ``torch.save``; nothing turns TF32
+             off in the subprocesses but the port's own guard):
              segmentations byte-equal, source shapes and affines kept,
              entropy within 1 LSB. Meanwhile ``bench_torch.py`` runs as
              ``__main__`` in this process at a reduced count; its JSON line
              must carry every key.
+9. eval    — the same model, written as a ``state_dict`` with ``torch.save``,
+             and 3 seeded scans with labels (128³, 128×120×112, 112×128×124)
+             through the store evaluation: in-process ``evaluate_store`` on
+             ``VolumeStore.from_dirs`` (launch counts, seconds a volume at
+             depth 2, exports), ``evaluate_store_batched`` with 2 volumes a
+             group (report within 1e-3 of the sequential one, argmax
+             agreement), ``torch.cuda.max_memory_allocated`` of
+             ``evaluate_volumes_batched`` at V = 1 and 2 beside
+             ``batched_hbm_estimate`` (within 30 %), one volume with
+             ``split_decoder`` against the concatenating decoder (argmax
+             agreement, ``backbone+prior`` ms of both); then ``python -m
+             pmpu_tpu_torch.eval --bf16 --save-uncertainty --ged 2`` on the
+             card as a subprocess (its report equal to the in-process one
+             within 1e-6, its exports byte-equal, cropped to the source
+             shapes with the source affines), and with ``--mmap-store`` and
+             ``--eval-mode batched`` (the same reports).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--json PATH`` also writes
@@ -420,7 +439,12 @@ def phase_qconv():
 def phase_parity():
     from pmpu_tpu_torch import VolumeEvaluator, make_task
 
-    print("phase 4: whole path on the card vs the CPU (probunet 8,16, 32³, mean_z, f32)")
+    import contextlib
+
+    from pmpu_tpu_torch.models import unet
+
+    print("phase 4: whole path on the card vs the CPU (probunet 8,16, 32³, mean_z, f32, "
+          f"cuDNN allow_tf32={torch.backends.cudnn.allow_tf32})")
     rng = np.random.default_rng(4)
     vol = rng.random((32, 32, 32)).astype(np.float32)
     truth = (vol > 0.6).astype(np.int32) + (vol > 0.9)
@@ -433,9 +457,25 @@ def phase_parity():
     mism = int((gpu["argmax"] != cpu["argmax"]).sum())
     print(f"  fused max |diff| {diff:.3g}, argmax mismatches {mism}, dice equal "
           f"{np.array_equal(gpu['dice'], cpu['dice'])}")
+    # the fault the guard repairs: the same card run with unet.py's guard
+    # patched out, so that its f32 convolutions take cuDNN's TF32 default
+    guard = unet.exact_f32_if
+    unet.exact_f32_if = lambda dtype: contextlib.nullcontext()
+    try:
+        task = make_task("probunet", num_filters=(8, 16), device="cuda", seed=5)
+        tf32 = VolumeEvaluator(task, mean_z=True, device="cuda").evaluate_volume(vol, truth)
+    finally:
+        unet.exact_f32_if = guard
+    tf32_diff = (tf32["fused"].cpu() - cpu["fused"]).abs().max().item()
+    tf32_mism = int((tf32["argmax"] != cpu["argmax"]).sum())
+    print(f"  with the guard patched out (TF32 convolutions): fused max |diff| {tf32_diff:.3g}, "
+          f"argmax mismatches {tf32_mism}, dice max |diff| "
+          f"{float(np.abs(tf32['dice'] - cpu['dice']).max()):.3g}")
     require(mism == 0, f"parity: {mism} argmax mismatches")
     require(diff <= 1e-4, f"parity: fused probabilities differ by {diff}")
     require(np.array_equal(gpu["dice"], cpu["dice"]), "parity: Dice tables differ")
+    parity = {"fused_max_abs_diff": diff, "tf32_fused_max_abs_diff": tf32_diff,
+              "tf32_argmax_mismatches": tf32_mism}
 
     from pmpu_tpu_torch.ops.cuda.qconv import fused_qchain
 
@@ -483,6 +523,7 @@ def phase_parity():
     require(diff <= 1e-5, f"6-view parity: fused probabilities differ by {diff}")
     require(unexplained == 0, f"6-view parity: {unexplained} argmax mismatches at clear maxima")
     require(dice_diff <= 1e-4, f"6-view parity: Dice differs by {dice_diff}")
+    return parity
 
 
 def synthetic_volume(cube, seed):
@@ -1243,10 +1284,8 @@ def phase_stream(card, task):
                    "-f", os.path.join(d, "unet.pt"), "--n-classes", "3", "--num-filters", "8,16",
                    "-i", os.path.join(d, "in"), "-o", os.path.join(d, f"seg_{dev}"),
                    "--uncertainty", os.path.join(d, f"ent_{dev}"), "--device", dev]
-            # f32 convolutions without TF32, as in phase 4
-            env = {**os.environ, "NVIDIA_TF32_OVERRIDE": "0"}
             procs[f"predict --device {dev}"] = subprocess.Popen(
-                cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         t0 = time.perf_counter()
         try:
             line = run_bench({"BENCH_REPEATS": "2", "BENCH_STREAM": "4",
@@ -1288,6 +1327,247 @@ def phase_stream(card, task):
             "fetched_entropy_lsb": deq_lsb, "cli_entropy_lsb": ent_err, "bench_line": bench}
 
 
+EVAL_SEED = 9
+EVAL_SHAPES = ((128, 128, 128), (128, 120, 112), (112, 128, 124))
+REPORT_LINE = r"^(view \d+ dice|avg volume): mean=\[(.*)\], std=\[(.*)\]$"
+
+
+def write_labeled_scans(directory):
+    """A ``{images,labels}`` tree of seeded scans of ``EVAL_SHAPES`` (the
+    nested ellipsoids of ``synthetic_volume`` cropped to each shape) with
+    their own affines; returns {name: (shape, affine)}."""
+    from pmpu_tpu_torch.data import nifti
+
+    scans = {}
+    for i, shape in enumerate(EVAL_SHAPES):
+        img, truth = synthetic_volume(128, seed=40 + i)
+        crop = tuple(slice(0, n) for n in shape)
+        affine = np.diag([1.0, 0.9 + 0.1 * i, 1.2, 1.0])
+        affine[:3, 3] = (-64.0, 10.0 * i, -30.0)
+        name = f"case{i}.nii"
+        nifti.save(os.path.join(directory, "images", name), img[crop], affine)
+        nifti.save(os.path.join(directory, "labels", name), truth[crop].astype(np.float32), affine)
+        scans[name] = (shape, nifti.read_header(os.path.join(directory, "images", name)).affine)
+    return scans
+
+
+def report_lines(report) -> dict:
+    """The eval CLI's report numbers {label: (mean, std)} from a report."""
+    rows = {f"view {v + 1} dice": a for v, a in enumerate(report["per_view"])}
+    rows["avg volume"] = report["fused"]
+    return {k: (a.mean(axis=0), a.std(axis=0)) for k, a in rows.items()}
+
+
+def parse_report(stdout) -> dict:
+    import re
+
+    out = {}
+    for line in stdout.splitlines():
+        m = re.match(REPORT_LINE, line.strip())
+        if m:
+            out[m.group(1)] = tuple(np.array(g.split(), np.float64) for g in m.group(2, 3))
+    return out
+
+
+def report_diff(a: dict, b: dict) -> float:
+    require(sorted(a) == sorted(b), f"report lines differ: {sorted(a)} vs {sorted(b)}")
+    return max(float(np.abs(np.asarray(x, np.float64) - np.asarray(y, np.float64)).max())
+               for k in a for x, y in zip(a[k], b[k]))
+
+
+def argmax_agreement(dir_a, dir_b, names) -> float:
+    from pmpu_tpu_torch.data import nifti
+
+    same = total = 0
+    for n in names:
+        a, b = nifti.load(os.path.join(dir_a, n)), nifti.load(os.path.join(dir_b, n))
+        require(a.shape == b.shape, f"{n}: shapes {a.shape} and {b.shape}")
+        same += int((a == b).sum())
+        total += a.size
+    return same / total
+
+
+def phase_eval(card, task):
+    from pmpu_tpu_torch import VolumeEvaluator, make_task
+    from pmpu_tpu_torch.data import native, nifti
+    from pmpu_tpu_torch.data.volumes import VolumeStore
+    from pmpu_tpu_torch.ops.cuda.fcomb_mean import fcomb_mean_decode
+    from pmpu_tpu_torch.ops.cuda.slice_gather import gather_normalize_planes
+
+    print("phase 9: eval (the same model as a state_dict; 3 seeded scans with labels through "
+          "evaluate_store, the batched path, split_decoder and python -m pmpu_tpu_torch.eval)")
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        d = tmp.name
+        data = os.path.join(d, "data")
+        scans = write_labeled_scans(data)
+        names = sorted(scans)
+        ckpt = os.path.join(d, "probunet.pt")
+        torch.save(task.net.state_dict(), ckpt)
+        t0 = time.perf_counter()
+        store = VolumeStore.from_dirs(os.path.join(data, "images"), os.path.join(data, "labels"))
+        load_s = time.perf_counter() - t0
+        require(store.cube == max(map(max, EVAL_SHAPES)) and store.ids == names,
+                f"store: {store.ids}, cube {store.cube}")
+        print(f"  store of {len(store)} scans (cube {store.cube}) loaded in {load_s:.2f} s, "
+              f"native loader {native.available()}")
+
+        ev = VolumeEvaluator(task, n_samples=5, eval_batch=0)  # the eval CLI's settings
+        ev.evaluate_store(store, seed=EVAL_SEED)  # warm-up
+        reset_fcomb_counts()
+        gather_normalize_planes.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seq = ev.evaluate_store(store, seed=EVAL_SEED, save_dir=os.path.join(d, "inproc"),
+                                uncertainty_dir=os.path.join(d, "inproc_unc"))
+        seq_s = (time.perf_counter() - t0) / len(store)
+        launches = {"fcomb_mean_decode": fcomb_mean_decode.launches,
+                    "gather_normalize_planes": gather_normalize_planes.launches}
+        print(f"  launches in evaluate_store of {len(store)} volumes: {launches}")
+        require(launches == {"fcomb_mean_decode": 3 * len(store),
+                             "gather_normalize_planes": len(store)},
+                f"eval: launches {launches}")
+        require_fcomb_route(3 * len(store), f"{len(store)}-volume store's")
+        require(seq["fused"].shape == (3, 2) and np.isfinite(seq["fused"]).all(),
+                f"eval: fused report {seq['fused']}")
+
+        t0 = time.perf_counter()
+        bat = ev.evaluate_store_batched(store, seed=EVAL_SEED, save_dir=os.path.join(d, "batched"),
+                                        volumes_per_batch=2)
+        bat_s = (time.perf_counter() - t0) / len(store)
+        bat_diff = report_diff(report_lines(bat), report_lines(seq))
+        bat_agree = argmax_agreement(os.path.join(d, "batched"), os.path.join(d, "inproc"), names)
+        print(f"  sequential fused Dice {np.round(seq['fused'], 5).tolist()}; batched "
+              f"{np.round(bat['fused'], 5).tolist()}; report max |diff| {bat_diff:.3g}, "
+              f"argmax agreement {100 * bat_agree:.4f} %")
+        require(bat_diff <= 1e-3, f"eval: batched report differs by {bat_diff}")
+        require(bat_agree >= 0.999, f"eval: batched argmax agreement {bat_agree}")
+
+        peaks = {}
+        for v in (1, 2):
+            imgs = np.stack([store.images[i] for i in range(v)])
+            truths = np.stack([store.labels[i] for i in range(v)])
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ev.evaluate_volumes_batched(imgs, truths, seed=EVAL_SEED)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            peaks[v] = {"max_memory_allocated": peak, "resident_before": base,
+                        "peak_above_resident": peak - base,
+                        "batched_hbm_estimate": ev.batched_hbm_estimate(store.cube, v)}
+        from pmpu_tpu_torch.inference.engine import BATCHED_ACTIVATION_COEF, eval_chunk_plan
+
+        # the coefficient that would make batched_hbm_estimate's form hit each
+        # measured peak: per volume b·s²·f0·2·coef + s³·4·(3 + 2·4·3)
+        s_ = store.cube
+        unit = eval_chunk_plan(3 * s_, s_, s_, 0)[0] * s_ * s_ * task.net.num_filters[0] * 2
+        vol_term = s_**3 * 4 * (3 + 2 * 4 * 3)
+        for v, p in peaks.items():
+            ratio = p["batched_hbm_estimate"] / p["peak_above_resident"]
+            p["estimate_over_measured"] = ratio
+            p["fitted_coef"] = (p["peak_above_resident"] / v - vol_term) / unit
+            print(f"  [{card}] V={v}: max_memory_allocated {p['max_memory_allocated'] / 2**30:.3f} "
+                  f"GiB, {p['peak_above_resident'] / 2**30:.3f} GiB above the "
+                  f"{p['resident_before'] / 2**30:.3f} GiB resident; batched_hbm_estimate "
+                  f"{p['batched_hbm_estimate'] / 2**30:.3f} GiB ({ratio:.3f} of the measured; "
+                  f"coefficient {BATCHED_ACTIVATION_COEF}, the measured peak fits "
+                  f"{p['fitted_coef']:.2f})")
+
+        net = task.net
+        split_task = make_task("probunet", num_filters=net.num_filters, latent_dim=net.latent_dim,
+                               n_classes=task.n_classes, no_convs_fcomb=net.no_convs_fcomb,
+                               dtype=net.dtype, split_decoder=True, seed=1)
+        split_task.net.load_state_dict(task.net.state_dict(), strict=True)
+        ev_split = VolumeEvaluator(split_task, n_samples=5, eval_batch=0)
+        vol, truth = store.images[0], store.labels[0]
+        ev_split.evaluate_volume(vol, truth)  # warm-up
+        a = ev.evaluate_volume(vol, truth, seed=3, return_views=False)
+        b = ev_split.evaluate_volume(vol, truth, seed=3, return_views=False)
+        split_diff = (a["fused"] - b["fused"]).abs().max().item()
+        split_agree = float((a["argmax"] == b["argmax"]).mean())
+        split_ms = {name: stage_ms(e, vol, truth)["backbone+prior"]
+                    for name, e in (("concat", ev), ("split", ev_split), ("concat again", ev),
+                                    ("split again", ev_split))}
+        print(f"  [{card}] split_decoder, one {store.cube}³ volume: fused max |diff| {split_diff:.3g}, "
+              f"argmax agreement {100 * split_agree:.4f} %; backbone+prior ms "
+              f"{ {k: round(v, 3) for k, v in split_ms.items()} }")
+        require(split_agree >= 0.999, f"eval: split_decoder argmax agreement {split_agree}")
+        del split_task, ev_split
+
+        # the CLI: alone for its wall, then the mmap and batched runs together
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+        base_cmd = [sys.executable, "-m", "pmpu_tpu_torch.eval", "-m", "probunet", "-f", ckpt,
+                    "-d", data, "--bf16", "--seed", str(EVAL_SEED), "--num-filters",
+                    ",".join(map(str, net.num_filters)), "--latent-dim", str(net.latent_dim)]
+        runs = {"sequential": ["--save-uncertainty", "unc", "--ged", "2"],
+                "mmap": ["--mmap-store", os.path.join(d, "pool")],
+                "batched": ["--eval-mode", "batched", "--eval-volumes-batch", "2"]}
+        outs, walls = {}, {}
+
+        def start(name):
+            cwd = os.path.join(d, f"cli_{name}")
+            os.makedirs(cwd)
+            return subprocess.Popen(base_cmd + runs[name], cwd=cwd, env=env,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+        for group in (("sequential",), ("mmap", "batched")):
+            t0 = time.perf_counter()
+            procs = {name: start(name) for name in group}
+            try:
+                for name, proc in procs.items():
+                    outs[name], err = proc.communicate(timeout=300)
+                    walls[name] = time.perf_counter() - t0
+                    require(proc.returncode == 0, f"eval CLI {name} exited {proc.returncode}:\n"
+                            f"{err[-4000:]}")
+            finally:
+                for proc in procs.values():
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+        want = report_lines(seq)
+        cli_diff = {name: report_diff(parse_report(out), want) for name, out in outs.items()}
+        seq_dir = os.path.join(d, "cli_sequential")
+        for name, (shape, affine) in scans.items():
+            path = os.path.join(seq_dir, "predictions", name)
+            with open(path, "rb") as f, open(os.path.join(d, "inproc", name), "rb") as g:
+                require(f.read() == g.read(), f"eval CLI: {name} differs from the in-process export")
+            hdr = nifti.read_header(path)
+            require(hdr.shape == shape and np.allclose(hdr.affine, affine),
+                    f"eval CLI: {name} has shape {hdr.shape}, not the source's {shape}")
+            ent = nifti.load(os.path.join(seq_dir, "unc", name))
+            require(ent.shape == shape and 0.0 <= ent.min() and ent.max() <= np.log(3) + 1e-6,
+                    f"eval CLI: {name} entropy map")
+        ged = [ln for ln in outs["sequential"].splitlines() if ln.startswith("GED^2 (2 samples)")]
+        cli_agree = argmax_agreement(os.path.join(d, "cli_batched", "predictions"),
+                                     os.path.join(seq_dir, "predictions"), names)
+        print(f"  eval CLI on the card: report max |diff| against in-process evaluate_store "
+              f"{cli_diff}; exports byte-equal, source shapes and affines kept; {ged}; batched "
+              f"CLI argmax agreement {100 * cli_agree:.4f} %")
+        require(cli_diff["sequential"] <= 1e-6 and cli_diff["mmap"] <= 1e-6,
+                f"eval CLI: reports differ from in-process evaluate_store: {cli_diff}")
+        require(cli_diff["batched"] <= 1e-3 and cli_agree >= 0.999,
+                f"eval CLI: batched report {cli_diff['batched']}, agreement {cli_agree}")
+        require(len(ged) == 1, "eval CLI: no GED line")
+        for v, p in peaks.items():
+            require(0.7 <= p["estimate_over_measured"] <= 1.3,
+                    f"eval: batched_hbm_estimate at V={v} is "
+                    f"{p['estimate_over_measured']:.3f} of the measured peak")
+        print(f"  [{card}] s/volume: evaluate_store depth 2 {seq_s:.4f}, evaluate_store_batched "
+              f"(2 a group) {bat_s:.4f}; CLI wall {walls['sequential']:.1f} s alone for "
+              f"{len(store)} volumes with 2 GED draws each (process start included); "
+              f"--mmap-store and batched CLIs together {walls}")
+    finally:
+        tmp.cleanup()
+    return {"launches": launches, "evaluate_store_s_per_volume": seq_s,
+            "batched_s_per_volume": bat_s, "batched_report_diff": bat_diff,
+            "batched_argmax_agreement": bat_agree, "peaks": peaks,
+            "split_fused_max_abs_diff": split_diff, "split_argmax_agreement": split_agree,
+            "split_backbone_prior_ms": split_ms, "cli_report_diff": cli_diff,
+            "cli_wall_s": walls, "store_load_s": load_s, "ged_line": ged}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write all measurements to this file")
@@ -1302,8 +1582,9 @@ def main() -> int:
     print(card)
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # PyTorch's default, set here so that no earlier setting hides a fault:
+    # the port's f32 convolutions must turn TF32 off themselves (phase 4)
+    torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     sys.path.insert(0, ROOT)
@@ -1326,11 +1607,12 @@ def main() -> int:
     phase_qconv()
     phase_oblique_kernel()
     clock.append(("kernels", time.perf_counter()))
-    phase_parity()
+    parity = phase_parity()
     clock.append(("parity", time.perf_counter()))
     kernels, summary, (task, vol, truth, r_bf16) = phase_full(card)
     clock.append(("full", time.perf_counter()))
     summary["phase3_max_abs_err"] = errs
+    summary["parity"] = parity
     qchain_kernels, summary["int8"] = phase_int8(card, task, vol, truth, r_bf16, summary)
     kernels += qchain_kernels
     clock.append(("int8", time.perf_counter()))
@@ -1339,6 +1621,8 @@ def main() -> int:
     clock.append(("oblique", time.perf_counter()))
     summary["stream"] = phase_stream(card, task)
     clock.append(("stream", time.perf_counter()))
+    summary["eval"] = phase_eval(card, task)
+    clock.append(("eval", time.perf_counter()))
     summary["phase_s"] = {name: b - a for (_, a), (name, b) in zip(clock, clock[1:])}
     summary["phase_s"]["build"] = build_s
     print(f"seconds by phase: { {k: round(v, 1) for k, v in summary['phase_s'].items()} }; "

@@ -13,7 +13,10 @@ the plain PyTorch versions of the hand-written kernels
 What is ported so far: whole-volume inference of the U-Net and the
 probabilistic U-Net on the 3 standard views or on k isotropic oblique
 views, in float and in int8, and the generalized energy distance of one
-volume (``inference.engine.VolumeEvaluator``).
+volume (``inference.engine.VolumeEvaluator``); the serving stream and the
+predict CLI (``python -m pmpu_tpu_torch.predict``); the host volume store
+(``data.volumes.VolumeStore``), store evaluation, sequential and batched,
+and the eval CLI (``python -m pmpu_tpu_torch.eval``).
 """
 
 from pmpu_tpu_torch.inference.engine import VolumeEvaluator

@@ -1,16 +1,19 @@
 """Typed configuration: the port's copy of ``pmpu_tpu/config.py``
 (``parse_num_filters`` :19, ``Config`` :26 with ``resolved_n_classes`` and
-``task_kwargs`` :128), kept here because importing the JAX package pulls in
-jax and flax.
+``task_kwargs`` :128, ``add_eval_args`` :165, the evaluation flags of
+``_add_extension_args`` :174-283, ``config_from_args`` :285), kept here
+because importing the JAX package pulls in jax and flax.
 
 ``Config`` has the JAX package's fields and defaults, so a configuration
 moves between the two packages field for field. What the port runs so far
-reads the model fields and the inference ones; the training fields wait for
-the training path.
+reads the model fields and the inference ones; the training fields (and
+their flags) wait for the training path.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -79,7 +82,7 @@ class Config:
     quantize: Optional[str] = None  # eval: None | "int8"
     calibration: Optional[str] = None  # int8 scale file (JSON)
     input_dtype: Optional[str] = None  # H2D wire: None (auto), float32, bfloat16, uint8
-    split_decoder: bool = False  # not ported yet
+    split_decoder: bool = False  # decoder conv0 as conv(skip)+conv(up), no concat
     identity_affine: bool = False  # exports: padded cube + identity affine
     autosave_minutes: float = 0.0
     epoch_offset: int = 0
@@ -94,16 +97,82 @@ class Config:
     def task_kwargs(self) -> dict:
         """Keyword arguments of ``pmpu_tpu_torch.train.tasks.make_task``.
         The loss options (``beta``, ``loss``, ``class_weights``) come with
-        the training path; ``split_decoder`` is not ported yet."""
-        if self.split_decoder:
-            raise NotImplementedError("split_decoder is not ported yet (pmpu_tpu_torch runs "
-                                      "the concatenating decoder; the weights are the same)")
+        the training path."""
         kw = dict(
             n_channels=self.n_channels,
             n_classes=self.resolved_n_classes(),
             num_filters=tuple(self.num_filters),
             dtype=torch.bfloat16 if self.bf16 else None,
         )
+        if self.split_decoder:
+            kw["split_decoder"] = True
         if self.net == "probunet":
             kw.update(latent_dim=self.latent_dim, no_convs_fcomb=self.no_convs_fcomb)
         return kw
+
+
+def add_eval_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The JAX eval CLI's flags (reference ``eval.py:25-36`` and the JAX
+    package's evaluation extensions), with the same names and defaults,
+    plus ``--device``."""
+    p.add_argument("-f", "--load", dest="load", type=str, default=None)
+    p.add_argument("-d", "--dir", dest="dir", type=str, default=None)
+    p.add_argument("-m", "--model", dest="net", type=str, default="unet")
+    g = p.add_argument_group("framework extensions")
+    g.add_argument("--seed", type=int, default=0)
+    g.add_argument("--bf16", action="store_true")
+    g.add_argument("--num-views", dest="num_views", type=int, default=3)
+    g.add_argument("--eval-samples", dest="eval_samples", type=int, default=5)
+    g.add_argument("--eval-batch", dest="eval_batch", type=int, default=0)
+    g.add_argument("--data-parallel", dest="data_parallel", action="store_true",
+                   help="shard slice slabs over the visible devices (one device: "
+                   "no effect; more raise until the parallel path is ported)")
+    g.add_argument("--split-decoder", dest="split_decoder", action="store_true",
+                   help="compute decoder convs as conv(skip)+conv(up) with "
+                   "sliced kernels (no concat materialization; identical checkpoints)")
+    g.add_argument("--identity-affine", dest="identity_affine", action="store_true",
+                   help="strict reference-parity exports: padded cube + "
+                   "identity affine (eval.py:51-57). Default: un-pad to the "
+                   "source shape and carry the input scan's affine/spacing "
+                   "through to the output NIfTI header")
+    g.add_argument("--n-classes", dest="n_classes", type=int, default=None)
+    g.add_argument("--num-filters", dest="num_filters", type=parse_num_filters,
+                   default=(64, 128, 256, 512, 1024),
+                   help="comma-separated encoder widths (reference default 64,128,256,512,1024)")
+    g.add_argument("--latent-dim", dest="latent_dim", type=int, default=6)
+    g.add_argument("--save-uncertainty", dest="save_uncertainty", type=str, default=None)
+    g.add_argument("--ged", dest="ged", type=int, default=0,
+                   help="report GED^2 over N whole-volume samples (probunet)")
+    g.add_argument("--eval-mode", dest="eval_mode", type=str, default="sequential",
+                   choices=["sequential", "batched"],
+                   help="batched = volume groups through the model together")
+    g.add_argument("--eval-volumes-batch", dest="eval_volumes_batch", type=int, default=2)
+    g.add_argument("--mmap-store", dest="mmap_store", type=str, default=None,
+                   help="out-of-core volume pool: build/reuse the padded "
+                   "dataset as file-backed memmaps in this directory")
+    g.add_argument("--compile-cache", dest="compile_cache", type=str, default=None,
+                   help="the JAX package's XLA compilation cache; accepted and "
+                   "ignored (PyTorch runs eagerly)")
+    g.add_argument("--pipeline-depth", dest="pipeline_depth", type=int, default=2,
+                   help="eval: volumes dispatched ahead of the result fetch "
+                   "(0 = synchronous; results are bit-identical either way)")
+    g.add_argument("--quantize", dest="quantize", type=str, default=None, choices=["int8"],
+                   help="post-training int8 inference")
+    g.add_argument("--calibration", dest="calibration", type=str, default=None,
+                   help="int8 activation-scale JSON: loaded if present "
+                   "(skips first-volume self-calibration), saved after "
+                   "self-calibration otherwise (with --quantize int8)")
+    g.add_argument("--input-dtype", dest="input_dtype", type=str, default=None,
+                   choices=["float32", "bfloat16", "uint8"],
+                   help="eval H2D volume wire dtype (default: bf16 iff --bf16); "
+                   "uint8 = 8-bit fixed point vs per-volume max")
+    g.add_argument("--device", type=str, default="cuda",
+                   help="cuda, or cpu for the kernels' plain versions")
+    return p
+
+
+def config_from_args(args: argparse.Namespace) -> Config:
+    """A ``Config`` from parsed flags; flags that are not fields (``--device``)
+    are left out."""
+    known = {f.name for f in dataclasses.fields(Config)}
+    return Config(**{k: v for k, v in vars(args).items() if k in known})

@@ -1,6 +1,8 @@
-"""Device resolution shared by the port's entry points."""
+"""Device resolution and f32 precision shared by the port's modules."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -19,3 +21,25 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
     return dev
+
+
+@contextlib.contextmanager
+def exact_f32():
+    """TF32 off for the f32 convolutions (cuDNN) and matmuls (cuBLAS) run
+    inside, whatever the process set (PyTorch's default lets cuDNN use
+    TF32); both settings are restored on exit. The JAX package computes
+    these in exact f32. Callers enter it only for f32 operands, so the bf16
+    path pays nothing."""
+    conv, mm = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv
+        torch.set_float32_matmul_precision(mm)
+
+
+def exact_f32_if(dtype):
+    """:func:`exact_f32` for f32 operands, else a context that does nothing."""
+    return exact_f32() if dtype == torch.float32 else contextlib.nullcontext()

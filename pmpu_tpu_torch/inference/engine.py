@@ -1,5 +1,6 @@
 """Whole-volume multi-view inference (counterpart of
-``pmpu_tpu/inference/engine.py:47-115, 117-301, 388-592, 844-879, 970-1012``).
+``pmpu_tpu/inference/engine.py``, all but the XLA-specific parts: the mesh,
+``_compile_batched`` and ``batched_hbm_xla``).
 
 One volume's path:
 
@@ -23,9 +24,18 @@ host never waits) and then fetched (``_fetch_seg``, ``_fetch_entropy``).
 The outputs the host reads (the packed argmax, Dice, the uint16 entropy)
 are copied on a side CUDA stream, behind an event of the compute stream,
 into pinned host buffers that a pool reuses; the fetch waits on the copy's
-event. ``predict_volumes_pipelined`` dispatches volume i+1 before it
-fetches volume i, so the host work of one volume (the upload's
-quantization, the fetches) runs while the card computes another.
+event. ``predict_volumes_pipelined`` and ``evaluate_store`` dispatch
+volume i+1 before they fetch volume i, so the host work of one volume (the
+upload's quantization, the fetches, the exports) runs while the card
+computes another.
+
+``evaluate_volumes_batched`` runs V volumes together: chunk i of every
+volume goes through the model in one call (V·b slices), so it holds V× the
+activations of one volume for the same number of launches.
+``evaluate_store_batched`` groups a store that way, behind a memory guard
+(``batched_hbm_estimate`` against ``device_hbm_limit``) and an
+out-of-memory backstop on the first group; either falls back to
+``evaluate_store``.
 """
 
 from __future__ import annotations
@@ -33,13 +43,17 @@ from __future__ import annotations
 import json
 import logging
 import os
+import warnings
 from collections import deque
+from contextlib import nullcontext
 from typing import Optional
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
+from pmpu_tpu_torch.data import nifti
+from pmpu_tpu_torch.data.volumes import restore_geometry
 from pmpu_tpu_torch.device import resolve_device
 from pmpu_tpu_torch.models import quantized as qz
 from pmpu_tpu_torch.inference.fusion import (
@@ -76,6 +90,34 @@ def eval_chunk_plan(total: int, h: int, w: int, eval_batch: int):
     else:
         b = eval_batch
     return b, -(-total // b)
+
+
+# full-resolution activations of a chunk that ``batched_hbm_estimate``
+# counts at its peak; fitted on the card (see its docstring)
+BATCHED_ACTIVATION_COEF = 7.15
+
+
+def device_hbm_limit(device=None) -> Optional[int]:
+    """Device memory budget in bytes for the batched path's guard:
+    ``PMPU_HBM_BYTES`` overrides (a malformed value warns and is ignored);
+    else the CUDA device's total memory; None on the CPU (no guard)."""
+    env = os.environ.get("PMPU_HBM_BYTES")
+    if env:
+        try:
+            return int(float(env))  # accepts "15e9" too
+        except ValueError:
+            warnings.warn(f"ignoring malformed PMPU_HBM_BYTES={env!r}")
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        return None
+    return int(torch.cuda.mem_get_info(dev)[1])
+
+
+def _from_numpy(a: np.ndarray) -> torch.Tensor:
+    """A contiguous host tensor of ``a``; a read-only array (a memmap store)
+    is copied, since torch tensors are writable."""
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
 
 
 def _pack2bit(a: torch.Tensor) -> torch.Tensor:
@@ -161,6 +203,9 @@ class VolumeEvaluator:
               format): loaded if it exists, else written (atomically) after
               self-calibration on the first volume; an unreadable file is
               recalibrated and replaced. Only meaningful with "int8".
+      source_geometry: NIfTI exports of a store cropped to the source shape
+              with the source affine (``store.geoms``); False exports the
+              padded cube with the identity affine (the reference's exports)
       device: None means "cuda"; raises without a CUDA device unless "cpu"
     """
 
@@ -174,6 +219,7 @@ class VolumeEvaluator:
         input_dtype: Optional[str] = None,
         quantize: Optional[str] = None,
         calibration: Optional[str] = None,
+        source_geometry: bool = True,
         device=None,
     ):
         self.device = resolve_device(device)
@@ -183,6 +229,7 @@ class VolumeEvaluator:
         self.task = task
         self.n_samples = 1 if mean_z else n_samples
         self.mean_z = mean_z
+        self.source_geometry = source_geometry
         self.eval_batch = eval_batch
         if num_views < 1:
             raise ValueError(f"num_views must be at least 1, got {num_views}")
@@ -216,7 +263,7 @@ class VolumeEvaluator:
     def _to_device(self, x) -> torch.Tensor:
         """Host → device through a pooled pinned buffer, asynchronous; the
         buffer is free again once the copy has run. CPU: passes through."""
-        t = torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+        t = _from_numpy(x) if isinstance(x, np.ndarray) else x
         if self.device.type != "cuda":
             return t
         buf = self._pool.take(t.shape, t.dtype).copy_(t)
@@ -245,7 +292,7 @@ class VolumeEvaluator:
             m = a.max(axis=tuple(range(a.ndim - 3, a.ndim)), keepdims=True)
             q = a * np.divide(255.0, m, out=np.zeros_like(m), where=m > 0)
             return self._to_device(np.rint(q).astype(np.uint8))
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        t = _from_numpy(arr)
         if self.input_dtype == "bfloat16":
             return self._to_device(t.to(torch.bfloat16))
         return self._to_device(t.to(torch.float32))
@@ -257,7 +304,7 @@ class VolumeEvaluator:
         arr = np.asarray(truth)
         if arr.dtype != np.uint8 and self.task.n_classes < 256:
             arr = arr.astype(np.uint8)
-        return self._to_device(np.ascontiguousarray(arr))
+        return self._to_device(arr)
 
     # ------------------------------------------------------------------
     def _weights_identity(self):
@@ -327,7 +374,9 @@ class VolumeEvaluator:
         with ``per_sample``. The backbone and the prior run once; only the
         fcomb decode is per sample. The mean path is the fcomb mean-decode
         kernel (its plain version on the CPU). With ``quantize="int8"`` the
-        backbone and the prior run int8-resident on the conv-chain kernel."""
+        backbone and the prior run int8-resident on the conv-chain kernel.
+        ``generator`` draws the prior noise; a list of V generators draws
+        it for V equal runs of slices, one generator each."""
         net = self.task.net
         cd = net.dtype or torch.float32
         if not self.task.is_probabilistic:
@@ -345,8 +394,11 @@ class VolumeEvaluator:
         if self.mean_z:
             zs = loc[None]
         else:
-            eps = torch.randn((self.n_samples,) + tuple(loc.shape), generator=generator,
-                              device=loc.device, dtype=loc.dtype)
+            gens = generator if isinstance(generator, list) else [generator]
+            n = loc.shape[0] // len(gens)
+            draws = [torch.randn((self.n_samples, n, loc.shape[1]), generator=g,
+                                 device=loc.device, dtype=loc.dtype) for g in gens]
+            eps = draws[0] if len(draws) == 1 else torch.cat(draws, dim=1)
             zs = loc[None] + scale[None] * eps  # (n_samples, N, latent)
         if per_sample:
             return net.decode_samples(feats, zs)
@@ -356,24 +408,33 @@ class VolumeEvaluator:
                         per_sample: bool = False) -> torch.Tensor:
         """(total,H,W) slab → (total,H,W,C) logits, or (n_samples,total,H,W,C)
         with ``per_sample``."""
-        total, h, w = slabs.shape
+        logits = self._group_logits(slabs[None], [seed], per_sample)
+        return logits[:, 0] if per_sample else logits[0]
+
+    def _group_logits(self, slabs: torch.Tensor, seeds, per_sample: bool = False):
+        """(V,total,H,W) slabs of V volumes → (V,total,H,W,C) logits, or
+        (n_samples,V,total,H,W,C) with ``per_sample``. Chunk i of every
+        volume goes through the model in one call (V·b slices); volume j
+        draws chunk i's prior noise from ``chunk_generator(seeds[j], i)``,
+        as a one-volume evaluation with seed ``seeds[j]`` does."""
+        v, total, h, w = slabs.shape
         b, nchunk = eval_chunk_plan(total, h, w, self.eval_batch)
         pad = nchunk * b - total
         if pad:
-            slabs = torch.cat([slabs, slabs.new_zeros((pad, h, w))])
-        x = slabs[..., None]
+            slabs = torch.cat([slabs, slabs.new_zeros((v, pad, h, w))], dim=1)
         sampled = self.task.is_probabilistic and not self.mean_z
-        ax = 1 if per_sample else 0  # the slice axis of the logits
+        ax = 1 if per_sample else 0  # the volume axis of the logits
         logits = None
         for i in range(nchunk):
-            gen = chunk_generator(self.device, seed, i) if sampled else None
-            li = self._model_logits(x[i * b : (i + 1) * b], gen, per_sample)
+            gens = [chunk_generator(self.device, s, i) for s in seeds] if sampled else None
+            x = slabs[:, i * b : (i + 1) * b].reshape(v * b, h, w, 1)
+            li = self._model_logits(x, gens, per_sample).unflatten(ax, (v, b))
             if logits is None:
                 shape = list(li.shape)
-                shape[ax] = nchunk * b
+                shape[ax + 1] = nchunk * b
                 logits = li.new_empty(shape)
-            logits.narrow(ax, i * b, b).copy_(li)
-        return logits.narrow(ax, 0, total)
+            logits.narrow(ax + 1, i * b, b).copy_(li)
+        return logits.narrow(ax + 1, 0, total)
 
     def _to_probs(self, outputs: torch.Tensor) -> torch.Tensor:
         """Multi-class: softmax. Binary: the UNet already emits sigmoid
@@ -389,31 +450,43 @@ class VolumeEvaluator:
         and their mean fusion, each (S,S,S,C) f32. With ``per_sample`` each
         carries a leading n_samples axis: one fused volume per prior draw
         from one model pass (the GED path)."""
-        vol = vol.float()
+        return self._predict_group(vol[None], [seed], per_sample)[0]
+
+    def _predict_group(self, vols: torch.Tensor, seeds, per_sample: bool = False) -> list:
+        """(V,S,S,S) image volumes on the device, through the model together
+        (``_group_logits``) → for each volume, what ``_predict_volume`` with
+        its seed returns."""
+        vols = vols.float()
+        v, s = vols.shape[0], vols.shape[-1]
         if self._bases is None:
             with record_function("slice_slabs"):
-                slabs = normalize_slabs(view_slabs(vol))
+                slabs = normalize_slabs(view_slabs(vols))
         else:
             with record_function("oblique_slabs"):
-                slabs = normalize_slabs(oblique_slabs(vol, self._bases))
+                planes = [oblique_slabs(x, self._bases) for x in vols]
+                slabs = normalize_slabs(planes[0][None] if v == 1 else torch.stack(planes))
         with record_function("model"):
-            probs = self._to_probs(self._chunked_logits(slabs, seed, per_sample))
-        if self._bases is None:
-            with record_function("reassemble"):
-                views = reassemble_views(probs)
-        else:
-            s = vol.shape[0]
-            views = []
-            with record_function("splat_back"):
-                for i, basis in enumerate(self._bases):
-                    pv = probs[..., i * s : (i + 1) * s, :, :, :]
-                    if per_sample:
-                        views.append(torch.stack([resample_view_to_grid(p, basis) for p in pv]))
-                    else:
-                        views.append(resample_view_to_grid(pv, basis))
-        with record_function("fuse"):
-            fused = fuse_mean(views)
-        return tuple(views) + (fused,)
+            probs = self._to_probs(self._group_logits(slabs, seeds, per_sample))
+        outs = []
+        for j in range(v):
+            pj = probs[:, j] if per_sample else probs[j]
+            if self._bases is None:
+                with record_function("reassemble"):
+                    views = reassemble_views(pj)
+            else:
+                views = []
+                with record_function("splat_back"):
+                    for i, basis in enumerate(self._bases):
+                        pv = pj[..., i * s : (i + 1) * s, :, :, :]
+                        if per_sample:
+                            views.append(torch.stack([resample_view_to_grid(p, basis)
+                                                      for p in pv]))
+                        else:
+                            views.append(resample_view_to_grid(pv, basis))
+            with record_function("fuse"):
+                fused = fuse_mean(views)
+            outs.append(tuple(views) + (fused,))
+        return outs
 
     def _dice_report(self, volumes, truth) -> torch.Tensor:
         """Per-class (1..C-1) Dice of each view volume and the fusion:
@@ -476,6 +549,28 @@ class VolumeEvaluator:
         return self._fetch(h, "entropy",
                            lambda q: q.astype(np.float32) * (self._entropy_scale / 65535.0))
 
+    def _release(self, h: dict) -> None:
+        """Give the host buffers of ``h`` that were not fetched back to the
+        pool, free once their copy has run."""
+        for name in [k for k in h if k != "copied"]:
+            self._pool.give(h.pop(name), h["copied"])
+
+    def _device_outputs(self, fused, dice, want_entropy: bool) -> dict:
+        """The outputs the host reads of fused volumes (..., S,S,S,C): the
+        argmax (2-bit packed when the classes fit), the Dice table when
+        given, the uint16 entropy when asked."""
+        seg = torch.argmax(fused, dim=-1).to(torch.uint8)
+        dev = {}
+        if self._pack_classes and fused.shape[-2] % 4 == 0:
+            dev["seg_packed"] = _pack2bit(seg)
+        else:
+            dev["argmax_u8"] = seg
+        if dice is not None:
+            dev["dice"] = dice
+        if want_entropy:
+            dev["entropy"] = self._entropy(fused)
+        return dev
+
     @torch.inference_mode()
     def _dispatch_volume(self, img_vol, truth_vol=None, seed: int = 0,
                          want_entropy: bool = False) -> dict:
@@ -490,18 +585,11 @@ class VolumeEvaluator:
         with record_function("upload"):
             vol = self._upload(img_vol)
         outs = self._predict_volume(vol, seed)
-        fused = outs[-1]
-        seg = torch.argmax(fused, dim=-1).to(torch.uint8)
-        dev = {}
-        if self._pack_classes and fused.shape[2] % 4 == 0:
-            dev["seg_packed"] = _pack2bit(seg)
-        else:
-            dev["argmax_u8"] = seg
+        dice = None
         if truth_vol is not None:
-            dev["dice"] = self._dice_report(outs, self._upload_truth(truth_vol))
-        if want_entropy:
-            dev["entropy"] = self._entropy(fused)
-        return {"fused": fused, "views": outs[:-1], **self._copy_to_host(dev)}
+            dice = self._dice_report(outs, self._upload_truth(truth_vol))
+        dev = self._device_outputs(outs[-1], dice, want_entropy)
+        return {"fused": outs[-1], "views": outs[:-1], **self._copy_to_host(dev)}
 
     @torch.inference_mode()
     def evaluate_volume(self, img_vol, truth_vol=None, seed: int = 0,
@@ -549,6 +637,203 @@ class VolumeEvaluator:
             drain()
         return results
 
+    def _export(self, writer, path: str, arr: np.ndarray, store, i: int) -> None:
+        """Queue a NIfTI export of volume ``i`` of ``store``: cropped to the
+        source shape with the source affine (``store.geoms``), or the padded
+        cube with the identity affine when ``source_geometry`` is off or the
+        store has no geometry."""
+        geoms = store.geoms
+        writer.save(path, *restore_geometry(arr, geoms[i] if geoms else None,
+                                            not self.source_geometry))
+
+    def _record(self, report: dict, writer, store, i: int, dice: np.ndarray,
+                exports) -> None:
+        """Append volume ``i``'s Dice table (num_views+1, C-1) to ``report``
+        and queue its exports, ``(directory, host array)`` pairs."""
+        for v in range(self.num_views):
+            report["per_view"][v].append(dice[v])
+        report["fused"].append(dice[-1])
+        logging.info("volume %d/%d %s fused dice=%s", i + 1, len(store), store.ids[i],
+                     np.round(dice[-1], 4))
+        for directory, arr in exports:
+            self._export(writer, f"{directory}/{store.ids[i]}", arr, store, i)
+
+    def _new_report(self) -> dict:
+        return {"per_view": [[] for _ in range(self.num_views)], "fused": []}
+
+    @staticmethod
+    def _stack_report(report: dict) -> dict:
+        return {"per_view": [np.stack(v) for v in report["per_view"]],
+                "fused": np.stack(report["fused"])}
+
+    @torch.inference_mode()
+    def evaluate_store(self, store, seed: int = 0, save_dir: Optional[str] = None,
+                       uncertainty_dir: Optional[str] = None, pipeline_depth: int = 2) -> dict:
+        """Evaluate every volume of a ``VolumeStore``: the reference's report,
+        ``{"per_view": [(N, C-1)] × num_views, "fused": (N, C-1)}`` of
+        per-class Dice. ``save_dir`` receives the fused argmax of each volume
+        as NIfTI, ``uncertainty_dir`` its predictive entropy (from the same
+        fused volume; no second model pass), both written by a background
+        thread. Volume i takes the seed ``derive_seed(seed, i)`` and
+        volumes i+1..i+``pipeline_depth`` are dispatched before volume i is
+        fetched; every depth gives the bits of depth 0."""
+        save_dir, uncertainty_dir = save_dir or None, uncertainty_dir or None
+        report = self._new_report()
+        depth = max(0, pipeline_depth)
+        pending = deque()
+        writer_cm = nifti.AsyncWriter() if (save_dir or uncertainty_dir) else nullcontext()
+        with writer_cm as writer:
+
+            def drain():
+                i, h = pending.popleft()
+                dice = self._fetch(h, "dice", np.copy)
+                exports = []
+                if save_dir:
+                    exports.append((save_dir, self._fetch_seg(h)))
+                if uncertainty_dir:
+                    exports.append((uncertainty_dir, self._fetch_entropy(h)))
+                self._release(h)
+                self._record(report, writer, store, i, dice, exports)
+
+            for i in range(len(store)):
+                h = self._dispatch_volume(store.images[i], store.labels[i],
+                                          derive_seed(seed, i),
+                                          want_entropy=uncertainty_dir is not None)
+                h.pop("views")  # the fetch reads only the host copies
+                h.pop("fused")
+                pending.append((i, h))
+                while len(pending) > depth:
+                    drain()
+            while pending:
+                drain()
+        return self._stack_report(report)
+
+    @torch.inference_mode()
+    def _dispatch_group(self, img_vols, truth_vols, seeds, want_entropy: bool = False) -> dict:
+        """Enqueue V volumes (V,S,S,S) through the model together, volume j
+        with the seed ``seeds[j]``. Returns 'fused' (V,S,S,S,C) on the
+        device and the host copies of the argmax, the Dice tables
+        (V, num_views+1, C-1) and the entropy, as ``_dispatch_volume``."""
+        if self.quantize:
+            self._maybe_quantize(sample_vol=img_vols[0])
+        vols = self._upload(img_vols)
+        outs = self._predict_group(vols, seeds)
+        fused = torch.stack([o[-1] for o in outs])
+        dice = None
+        if truth_vols is not None:
+            truths = self._upload_truth(truth_vols)
+            dice = torch.stack([self._dice_report(o, t) for o, t in zip(outs, truths)])
+        return {"fused": fused, **self._copy_to_host(self._device_outputs(fused, dice,
+                                                                          want_entropy))}
+
+    @torch.inference_mode()
+    def evaluate_volumes_batched(self, img_vols, truth_vols=None, seed: int = 0) -> dict:
+        """V volumes (V,S,S,S) through the model together (chunk i of all V
+        in one model call): V× the activation memory of one volume, the same
+        number of launches. Returns 'fused' (V,S,S,S,C) on the device and,
+        with truths, 'dice' (V, num_views+1, C-1) on the host. Volume j
+        draws the prior noise of ``evaluate_volume`` with the seed
+        ``derive_seed(seed, j)``, so the two agree in sampling mode too."""
+        seeds = [derive_seed(seed, j) for j in range(len(img_vols))]
+        h = self._dispatch_group(img_vols, truth_vols, seeds)
+        result = {"fused": h.pop("fused")}
+        if truth_vols is not None:
+            result["dice"] = self._fetch(h, "dice", np.copy)
+        self._release(h)
+        return result
+
+    def batched_hbm_estimate(self, s: int, volumes_per_batch: int) -> int:
+        """Device bytes that ``evaluate_volumes_batched`` of
+        ``volumes_per_batch`` volumes at cube ``s`` allocates at its peak,
+        beyond what is resident before it: the guard of
+        ``evaluate_store_batched``. The JAX estimate's form: the model's
+        activations of one chunk, ``BATCHED_ACTIVATION_COEF`` ×
+        chunk·s²·f0·dtype, plus the f32 slab and class volumes. JAX adds 4
+        per prior sample for its per-sample decode; the fcomb kernel holds
+        no per-sample activation, so here the term does not grow with the
+        samples. The coefficient, 7.15, is fitted to
+        ``torch.cuda.max_memory_allocated`` above the resident weights at
+        V = 1 and V = 2 (1.993 and 4.000 GiB: 7.13 and 7.16; probunet
+        64..1024, 128³, 128-slice chunks, 5 samples, bf16) on an NVIDIA H100
+        80GB HBM3 at 700 W (``chip_smoke.py`` phase 9). A planning number
+        (±30 %), used with headroom; the out-of-memory catch of the first
+        group is the backstop."""
+        b, _ = eval_chunk_plan(self.num_views * s, s, s, self.eval_batch)
+        d = 2 if self.task.net.dtype == torch.bfloat16 else 4
+        f0 = self.task.net.num_filters[0]
+        c = max(self.task.n_classes, 2)
+        per_vol = b * s * s * f0 * d * BATCHED_ACTIVATION_COEF
+        per_vol += s**3 * 4 * (3 + 2 * (self.num_views + 1) * c)
+        return int(volumes_per_batch * per_vol)
+
+    @torch.inference_mode()
+    def evaluate_store_batched(self, store, seed: int = 0, save_dir: Optional[str] = None,
+                               uncertainty_dir: Optional[str] = None,
+                               volumes_per_batch: int = 2) -> dict:
+        """The throughput variant of :meth:`evaluate_store`: groups of
+        ``volumes_per_batch`` volumes through the model together, as in
+        :meth:`evaluate_volumes_batched`; the same report and exports. Volume
+        i takes the seed ``derive_seed(seed, i)`` of :meth:`evaluate_store`,
+        so the two agree in sampling mode too (the JAX package folds a key a
+        group instead). The last group is padded by repeating its last
+        volume.
+
+        It falls back to :meth:`evaluate_store` with a warning when
+        :meth:`batched_hbm_estimate` exceeds 0.90 × ``device_hbm_limit``, or
+        when the first group runs out of device memory."""
+        save_dir, uncertainty_dir = save_dir or None, uncertainty_dir or None
+        vb = max(1, volumes_per_batch)
+        n = len(store)
+
+        def fallback(reason):
+            logging.warning("--eval-mode batched: %s; falling back to the sequential "
+                            "pipelined evaluator (same report/exports; use a smaller "
+                            "--eval-volumes-batch or cube to keep the batched path)", reason)
+            return self.evaluate_store(store, seed=seed, save_dir=save_dir,
+                                       uncertainty_dir=uncertainty_dir)
+
+        if n:
+            s = store.cube
+            limit = device_hbm_limit(self.device)
+            est = self.batched_hbm_estimate(s, vb)
+            if limit is not None and est > 0.90 * limit:
+                return fallback(f"estimated activation footprint {est / 2**30:.1f} GiB for "
+                                f"{vb} volumes at {s}^3 exceeds the {limit / 2**30:.1f} GiB "
+                                "device budget")
+        report = self._new_report()
+        writer_cm = nifti.AsyncWriter() if (save_dir or uncertainty_dir) else nullcontext()
+        with writer_cm as writer:
+            for g0 in range(0, n, vb):
+                idxs = list(range(g0, min(g0 + vb, n)))
+                sel = idxs + [idxs[-1]] * (vb - len(idxs))  # repeat-pad the last group
+                imgs = np.stack([store.images[i] for i in sel])
+                truths = np.stack([store.labels[i] for i in sel])
+                oom = None
+                try:
+                    h = self._dispatch_group(imgs, truths, [derive_seed(seed, i) for i in sel],
+                                             want_entropy=uncertainty_dir is not None)
+                    h.pop("fused")
+                    dice = self._fetch(h, "dice", np.copy)
+                except torch.cuda.OutOfMemoryError as e:
+                    # later groups have the first one's shapes: if it fits, they do
+                    if g0:
+                        raise
+                    oom = f"out of device memory ({type(e).__name__})"
+                if oom:  # outside the handler, so that its frames' tensors are freed
+                    torch.cuda.empty_cache()
+                    return fallback(oom)
+                seg = self._fetch_seg(h) if save_dir else None  # one fetch for the group
+                ent = self._fetch_entropy(h) if uncertainty_dir else None
+                self._release(h)
+                for j, i in enumerate(idxs):
+                    exports = []
+                    if save_dir:
+                        exports.append((save_dir, seg[j]))
+                    if uncertainty_dir:
+                        exports.append((uncertainty_dir, ent[j]))
+                    self._record(report, writer, store, i, dice[j], exports)
+        return self._stack_report(report)
+
     @torch.inference_mode()
     def ged_volume(self, img_vol, truth_vol, n_ged_samples: int = 4, seed: int = 0) -> float:
         """Generalized energy distance between ``n_ged_samples`` whole-volume
@@ -571,6 +856,8 @@ class VolumeEvaluator:
         else:
             vol = self._to_device(np.ascontiguousarray(img_vol, dtype=np.float32))
         samples = torch.argmax(ev._predict_volume(vol, seed, per_sample=True)[-1], dim=-1)
-        truths = torch.as_tensor(truth_vol, device=self.device)[None]
+        truth = truth_vol if isinstance(truth_vol, torch.Tensor) else _from_numpy(
+            np.asarray(truth_vol))
+        truths = truth.to(self.device)[None]
         n_classes = max(self.task.n_classes, 2)
         return float(generalized_energy_distance(samples, truths, n_classes))

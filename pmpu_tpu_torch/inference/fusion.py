@@ -14,16 +14,18 @@ from pmpu_tpu_torch.ops.cuda.slice_gather import gather_normalize_planes
 
 
 def view_slabs(volume: torch.Tensor) -> torch.Tensor:
-    """(S,S,S) volume → contiguous (3S,S,S) slices of the 3 standard views,
-    in the reference's view order (axis 0, 1, 2)."""
-    return torch.cat([volume, volume.permute(1, 0, 2), volume.permute(2, 0, 1)], dim=0)
+    """(..., S,S,S) volumes → contiguous (..., 3S,S,S) slices of the 3
+    standard views, in the reference's view order (axis 0, 1, 2)."""
+    return torch.cat([volume, volume.transpose(-3, -2), volume.movedim(-1, -3)], dim=-3)
 
 
 def normalize_slabs(slabs: torch.Tensor) -> torch.Tensor:
-    """Per-slice max normalization (a slice whose max is 0 passes through):
-    the gather-normalize kernel with ids 0..P-1 and no labels."""
-    ids = torch.arange(slabs.shape[0], device=slabs.device)
-    return gather_normalize_planes(slabs.contiguous(), ids)[0]
+    """Per-slice max normalization of (..., S,S) slices (a slice whose max
+    is 0 passes through): one launch of the gather-normalize kernel with ids
+    0..P-1 and no labels."""
+    planes = slabs.reshape(-1, *slabs.shape[-2:])
+    ids = torch.arange(planes.shape[0], device=slabs.device)
+    return gather_normalize_planes(planes.contiguous(), ids)[0].view(slabs.shape)
 
 
 def reassemble_views(probs: torch.Tensor):

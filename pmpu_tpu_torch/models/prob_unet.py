@@ -8,7 +8,8 @@
 * ``Fcomb``                   — the ``no_convs_fcomb`` 1×1 convs that combine
                                 z with the U-Net features; decoded by
                                 ``ProbabilisticUNet.decode_samples``
-* ``ProbabilisticUNet``       — UNet backbone (``apply_last_layer=False``),
+* ``ProbabilisticUNet``       — UNet backbone (``apply_last_layer=False``;
+                                ``split_decoder`` as in ``UNet``),
                                 prior p(z|x) and posterior q(z|x,y); eval
                                 never runs the posterior, which exists so
                                 that the reference weights load strictly.
@@ -113,6 +114,7 @@ class ProbabilisticUNet(nn.Module):
         no_convs_per_block: int = 2,
         no_convs_fcomb: int = 4,
         dtype: Optional[torch.dtype] = None,
+        split_decoder: bool = False,
     ):
         super().__init__()
         self.num_classes = num_classes
@@ -122,7 +124,7 @@ class ProbabilisticUNet(nn.Module):
         self.no_convs_fcomb = no_convs_fcomb
         self.dtype = dtype
         self.unet = UNet(input_channels, num_classes, num_filters,
-                         apply_last_layer=False, dtype=dtype)
+                         apply_last_layer=False, dtype=dtype, split_decoder=split_decoder)
         self.prior = AxisAlignedConvGaussian(
             input_channels, num_filters, latent_dim, no_convs_per_block, dtype)
         self.posterior = AxisAlignedConvGaussian(

@@ -35,6 +35,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from pmpu_tpu_torch.device import exact_f32, exact_f32_if
 from pmpu_tpu_torch.models.prob_unet import avg_pool_ceil
 from pmpu_tpu_torch.models.unet import BatchNorm2d, Conv2d, _pad_to_match, to_nchw, to_nhwc
 from pmpu_tpu_torch.ops.cuda.fcomb_mean import decode_samples_reference
@@ -65,7 +66,7 @@ def _quant_w(kernel, fake: bool):
 def _conv_nhwc(x, w_hwio, padding):
     """f32 NHWC conv with an HWIO kernel, TF32 off (cuDNN's default TF32
     would break the fake-quant path's ~1e-3 agreement)."""
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+    with exact_f32():
         y = F.conv2d(to_nchw(x), w_hwio.permute(3, 2, 0, 1), padding=padding)
     return to_nhwc(y)
 
@@ -142,12 +143,14 @@ def _maxpool2_int8(h):
 
 def _up_conv(y, up, dtype):
     """Transposed 2×2 stride-2 conv in the compute dtype, bias added in f32."""
-    y1 = F.conv_transpose2d(to_nchw(y.to(dtype)), up["upw"].to(dtype), stride=2)
+    with exact_f32_if(dtype):
+        y1 = F.conv_transpose2d(to_nchw(y.to(dtype)), up["upw"].to(dtype), stride=2)
     return to_nhwc(y1).float() + up["upb"]
 
 
 def _head(q, y, n_classes, dtype):
-    out = to_nhwc(F.conv2d(to_nchw(y.to(dtype)), q["outc"]["w"].to(dtype))).float()
+    with exact_f32_if(dtype):
+        out = to_nhwc(F.conv2d(to_nchw(y.to(dtype)), q["outc"]["w"].to(dtype))).float()
     out = out + q["outc"]["b"]
     return torch.sigmoid(out) if n_classes == 1 else out
 
@@ -470,7 +473,8 @@ def probunet_features_prior_int8(q, x, net, dtype=torch.bfloat16, collect=None,
             for layer in block:
                 h = _qconv(h, layer, act_dtype=torch.float32, collect=collect)
     enc = h.mean(dim=(1, 2), keepdim=True)
-    mls = F.conv2d(to_nchw(enc), q["prior_head"]["w"], q["prior_head"]["b"])[:, :, 0, 0]
+    with exact_f32():  # the prior's head is f32 whatever the compute dtype
+        mls = F.conv2d(to_nchw(enc), q["prior_head"]["w"], q["prior_head"]["b"])[:, :, 0, 0]
     latent = mls.shape[-1] // 2
     return feats, mls[:, :latent], torch.exp(mls[:, latent:])
 
@@ -500,7 +504,8 @@ def fcomb_decode_samples_int8(fq, unet_features, zs, dtype=torch.bfloat16, colle
     zero_b = torch.zeros_like(fq["k0_feat_sc"])
     fh = fused_qchain(f_i8, [_mat_layer(fq["k0_feat"], fq["k0_feat_sc"], zero_b)],
                       torch.float32, x_scale=fxs, relu=False)
-    z_half = zs.float() @ fq["k0_z"] + fq["b0"]
+    with exact_f32():
+        z_half = zs.float() @ fq["k0_z"] + fq["b0"]
     x = torch.relu(fh[None] + z_half[:, :, None, None, :])
     s, n, hh, ww, f0 = x.shape
     for layer in fq["layers"]:
@@ -508,7 +513,8 @@ def fcomb_decode_samples_int8(fq, unet_features, zs, dtype=torch.bfloat16, colle
         x = fused_qchain(x_i8.reshape(s * n, hh, ww, f0),
                          [_mat_layer(layer["w"], layer["ws"], layer["b"])],
                          torch.float32, x_scale=xs).reshape(s, n, hh, ww, -1)
-    out = (x.to(cd).float() @ fq["last_w"].to(cd).float()).to(cd)
+    with exact_f32():
+        out = (x.to(cd).float() @ fq["last_w"].to(cd).float()).to(cd)
     return out.float() + fq["last_b"]
 
 

@@ -3,7 +3,9 @@
 * ``DoubleConv`` — 2 × [3×3 conv (pad 1) → BatchNorm (eps 1e-5) → ReLU]
 * ``Down``       — 2×2 max-pool then DoubleConv
 * ``Up``         — 2×2 stride-2 transposed conv (halving channels),
-                   pad-to-match, concat(skip, upsampled), DoubleConv
+                   pad-to-match, concat(skip, upsampled), DoubleConv; with
+                   ``split`` the first conv takes the pair unconcatenated
+                   (``Conv2d.forward_split``), with the same parameters
 * ``OutConv``    — 1×1 conv
 * ``UNet``       — depth from ``num_filters``; sigmoid iff ``n_classes == 1``;
                    ``apply_last_layer=False`` returns the ``num_filters[0]``
@@ -20,16 +22,20 @@ bf16 follows the flax cast points, not ``torch.autocast``: parameters stay
 f32 and each conv casts its input, weight and bias to the compute dtype;
 BatchNorm normalizes in f32 with f32 statistics and rounds its output once
 to the input's dtype (flax ``BatchNorm(dtype=...)``); the head casts to f32.
+An f32 conv runs with TF32 off (``device.exact_f32_if``), as the JAX package
+computes it; a bf16 conv enters no such context.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pmpu_tpu_torch.device import exact_f32_if
 from pmpu_tpu_torch.models import initializers as pinit
 
 
@@ -46,9 +52,29 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x):
         cd = self.compute_dtype
-        if cd is None:
-            return super().forward(x)
-        return self._conv_forward(x.to(cd), self.weight.to(cd), self.bias.to(cd))
+        w, b = self.weight, self.bias
+        if cd is not None:
+            x, w, b = x.to(cd), w.to(cd), b.to(cd)
+        with exact_f32_if(x.dtype):
+            return self._conv_forward(x, w, b)
+
+    def forward_split(self, xs):
+        """``forward(cat(xs, channels))`` without the concatenation: one conv
+        per input over its slice of the kernel's input channels, summed,
+        then the bias (JAX ``unet.py::_SplitConcatConv``, whose rounding
+        points it keeps: in bf16 each partial conv rounds to bf16, the sum
+        and the bias add in bf16)."""
+        cd = self.compute_dtype
+        w, b = self.weight, self.bias
+        if cd is not None:
+            xs, w, b = [x.to(cd) for x in xs], w.to(cd), b.to(cd)
+        off, out = 0, None
+        with exact_f32_if(xs[0].dtype):
+            for x in xs:
+                y = F.conv2d(x, w[:, off:off + x.shape[1]], None, padding=self.padding)
+                out = y if out is None else out + y
+                off += x.shape[1]
+        return out + b[:, None, None]
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
@@ -62,9 +88,11 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
     def forward(self, x):
         cd = self.compute_dtype
-        if cd is None:
-            return super().forward(x)
-        return F.conv_transpose2d(x.to(cd), self.weight.to(cd), self.bias.to(cd), stride=2)
+        w, b = self.weight, self.bias
+        if cd is not None:
+            x, w, b = x.to(cd), w.to(cd), b.to(cd)
+        with exact_f32_if(x.dtype):
+            return F.conv_transpose2d(x, w, b, stride=2)
 
 
 class BatchNorm2d(nn.Module):
@@ -128,16 +156,25 @@ def _pad_to_match(x1, x2):
 
 
 class Up(nn.Module):
-    """ConvTranspose(cin → cin/2) + pad + concat(skip, up) + DoubleConv."""
+    """ConvTranspose(cin → cin/2) + pad + concat(skip, up) + DoubleConv.
+    ``split`` (JAX ``Up.split``): the DoubleConv's first conv takes (skip,
+    up) unconcatenated; the parameters and their names are the same."""
 
-    def __init__(self, cin, skip, cout, compute_dtype=None):
+    def __init__(self, cin, skip, cout, compute_dtype=None, split: bool = False):
         super().__init__()
+        self.split = split
         self.up = ConvTranspose2d(cin, cin // 2, compute_dtype=compute_dtype)
         self.conv = DoubleConv(skip + cin // 2, cout, compute_dtype)
 
     def forward(self, x1, x2):
         x1 = _pad_to_match(self.up(x1), x2)
-        return self.conv(torch.cat([x2, x1], dim=1))  # skip first
+        if not self.split:
+            return self.conv(torch.cat([x2, x1], dim=1))  # skip first
+        layers = self.conv.double_conv
+        y = layers[0].forward_split((x2, x1))
+        for m in itertools.islice(layers, 1, None):
+            y = m(y)
+        return y
 
 
 class OutConv(nn.Module):
@@ -162,7 +199,9 @@ def to_nhwc(x_nchw):
 class UNet(nn.Module):
     """``forward(x)``: (N,H,W,n_channels) → (N,H,W,n_classes) f32 logits
     (sigmoid probs when ``n_classes == 1``), or the (N,H,W,num_filters[0])
-    feature map in the compute dtype when ``apply_last_layer=False``."""
+    feature map in the compute dtype when ``apply_last_layer=False``.
+    ``split_decoder``: every ``Up`` in its split form (no skip
+    concatenation; the same state_dict)."""
 
     def __init__(
         self,
@@ -171,6 +210,7 @@ class UNet(nn.Module):
         num_filters: Sequence[int] = (64, 128, 256, 512, 1024),
         apply_last_layer: bool = True,
         dtype: Optional[torch.dtype] = None,
+        split_decoder: bool = False,
     ):
         super().__init__()
         nf = list(num_filters)
@@ -184,7 +224,8 @@ class UNet(nn.Module):
         )
         # flax up{i} == torch up_blocks.{i}: deepest first
         self.up_blocks = nn.ModuleList(
-            Up(nf[k + 1], nf[k], nf[k], dtype) for k in reversed(range(len(nf) - 1))
+            Up(nf[k + 1], nf[k], nf[k], dtype, split_decoder)
+            for k in reversed(range(len(nf) - 1))
         )
         self.outc = OutConv(nf[0], n_classes, dtype)
 

@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from pmpu_tpu_torch.device import exact_f32
 from pmpu_tpu_torch.ops.cuda import _build
 
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
@@ -66,8 +67,10 @@ def fcomb_matrices(fcomb_params, no_convs_fcomb: int, cf: int, dtype) -> FcombMa
 
 
 def _mm(x, w, cd):
-    """Matmul with f32 accumulation rounded once to ``cd``."""
-    return (x.float() @ w.float()).to(cd)
+    """Matmul with f32 accumulation rounded once to ``cd`` (exact f32
+    products: TF32 off whatever the process set)."""
+    with exact_f32():
+        return (x.float() @ w.float()).to(cd)
 
 
 def _z_half(zs, m: FcombMatrices, cd):

@@ -37,12 +37,15 @@ class UNetTask:
         n_classes: int = 1,
         num_filters: Sequence[int] = (64, 128, 256, 512, 1024),
         dtype: Optional[torch.dtype] = None,
+        split_decoder: bool = False,
         device=None,
         seed: int = 0,
     ):
         self.n_classes = n_classes
         self.net = _place(
-            UNet(n_channels, n_classes, tuple(num_filters), dtype=dtype), device, seed
+            UNet(n_channels, n_classes, tuple(num_filters), dtype=dtype,
+                 split_decoder=split_decoder),
+            device, seed,
         )
 
 
@@ -58,6 +61,7 @@ class ProbUNetTask:
         latent_dim: int = 6,
         no_convs_fcomb: int = 4,
         dtype: Optional[torch.dtype] = None,
+        split_decoder: bool = False,
         device=None,
         seed: int = 0,
     ):
@@ -66,7 +70,7 @@ class ProbUNetTask:
             ProbabilisticUNet(
                 input_channels=n_channels, num_classes=n_classes,
                 num_filters=tuple(num_filters), latent_dim=latent_dim,
-                no_convs_fcomb=no_convs_fcomb, dtype=dtype,
+                no_convs_fcomb=no_convs_fcomb, dtype=dtype, split_decoder=split_decoder,
             ),
             device, seed,
         )

@@ -39,7 +39,8 @@ def test_import_pulls_in_no_jax():
         "print(len(sys.modules), bad)\n"
     )
     assert _run(code).split()[-1] == "[]"
-    assert len(MODULES) >= 22
+    assert len(MODULES) >= 24
+    assert {"pmpu_tpu_torch.eval", "pmpu_tpu_torch.data.native"} <= set(MODULES)
 
 
 def _imports(path):
@@ -79,6 +80,11 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
         predict_main(["-i", "scan.nii"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         predict_main(["-i", "scan.nii", "--device", "cuda"])
+    # the eval CLI: the card unless --device cpu, before any data is read
+    from pmpu_tpu_torch.eval import main as eval_main
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eval_main(["-d", "no-such-dir"])
     out = subprocess.run([sys.executable, "bench_torch.py"], cwd=ROOT, capture_output=True,
                          text=True, timeout=300, env={**os.environ, "BENCH_DEVICE": "cuda"})
     assert out.returncode != 0 and "no CUDA device" in out.stderr and out.stdout == ""

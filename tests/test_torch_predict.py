@@ -83,13 +83,14 @@ def test_config_matches_jax():
         assert config.Config(**kw).resolved_n_classes() == \
             jax_config.Config(**kw).resolved_n_classes()
     for net in ("unet", "probunet"):
-        got = config.Config(net=net, bf16=True, num_filters=[4, 8]).task_kwargs()
-        want = jax_config.Config(net=net, bf16=True, num_filters=[4, 8]).task_kwargs()
-        assert got.pop("dtype") is torch.bfloat16 and want.pop("dtype") == jnp.bfloat16
-        want.pop("beta", None)  # a loss option: it comes with the training path
-        assert got == want
-    with pytest.raises(NotImplementedError, match="split_decoder"):
-        config.Config(split_decoder=True).task_kwargs()
+        for split in (False, True):
+            kw = dict(net=net, bf16=True, num_filters=[4, 8], split_decoder=split)
+            got = config.Config(**kw).task_kwargs()
+            want = jax_config.Config(**kw).task_kwargs()
+            assert got.pop("dtype") is torch.bfloat16 and want.pop("dtype") == jnp.bfloat16
+            want.pop("beta", None)  # a loss option: it comes with the training path
+            assert got == want
+            assert got.get("split_decoder", False) is split
 
 
 @pytest.mark.parametrize("name", ["unet", "probunet"])
