@@ -1,7 +1,9 @@
 #!/usr/bin/env python
-"""Benchmark of the PyTorch/H100 port: whole-volume multi-view inference.
+"""Benchmark of the PyTorch/H100 port: whole-volume multi-view inference,
+or with BENCH_MODE=train the train step.
 
     python3 bench_torch.py
+    BENCH_MODE=train python3 bench_torch.py
 
 The port's counterpart of ``bench.py``'s ``bench_infer``: the flagship
 probabilistic U-Net (filters 64..1024, latent 6, 5 prior samples a slice,
@@ -36,15 +38,37 @@ bf16, 128³ volumes on the uint8 wire, random weights from seed 0) through
   bf16 / eval_batch / quantize / input_dtype
                     the configuration
 
+BENCH_MODE=train is the counterpart of ``bench.py``'s ``bench_train``: the
+same model (bf16 compute, f32 parameters) trained from seed 0 on 2 seeded
+128³ scans with random labels, as (3,2,S,S,S) view stacks with every slice
+in the index (no filter); BENCH_TRAIN_BATCH (128) slices a step at
+``acc_steps`` 1, gathered by the gather-normalize kernel (one launch a
+step), the same rows every step. One line with ``bench.py``'s train keys:
+
+  metric / value / unit / vs_baseline
+                    ``bench.py``'s train line: value is slices/s
+  train_slices_per_sec_per_chip / train_sec_per_step
+                    host clock around BENCH_TRAIN_STEPS (10) steps after
+                    two warm-up steps, ended by a synchronize
+  train_vs_baseline baselines/reference_cpu_train.json's slices/s (the
+                    reference's step on the CPU) against it, when its cube
+                    and filters match
+  train_flops_per_step / train_achieved_tflops / train_mfu
+                    convolution and matmul FLOPs of one step, forward and
+                    backward (``FlopCounterMode``; elementwise work is not
+                    counted), over the step time and the bf16 peak
+  train_max_memory_bytes
+                    ``torch.cuda.max_memory_allocated`` over the timed steps
+                    (null on the CPU)
+
 Knobs, with bench.py's names and defaults: BENCH_CUBE (128), BENCH_SAMPLES
 (5), BENCH_EVAL_BATCH (0 = auto), BENCH_REPEATS (8), BENCH_BF16 (1),
 BENCH_FILTERS (64,128,256,512,1024), BENCH_QUANTIZE (int8 | unset),
 BENCH_INPUT_DTYPE (uint8), BENCH_DEVICE_REPEATS (10), BENCH_STREAM (8),
-BENCH_STREAM_ROUNDS (2), BENCH_PEAK_TFLOPS. BENCH_MODE=train exits non-zero:
-training is not ported yet, so the line carries no train keys.
-BENCH_DEVICE=cpu runs the kernels' plain versions on the CPU (for tests;
-its times are CPU times); the default is the card, and without one the
-bench raises.
+BENCH_STREAM_ROUNDS (2), BENCH_PEAK_TFLOPS, BENCH_MODE (infer | train),
+BENCH_TRAIN_BATCH (128), BENCH_TRAIN_STEPS (10). BENCH_DEVICE=cpu runs the
+kernels' plain versions on the CPU (for tests; its times are CPU times);
+the default is the card, and without one the bench raises.
 """
 
 from __future__ import annotations
@@ -258,14 +282,89 @@ def bench_infer() -> dict:
     }
 
 
+def bench_train() -> dict:
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from pmpu_tpu_torch.data.index_map import build_index_map
+    from pmpu_tpu_torch.data.sampler import sample_batch_vt
+    from pmpu_tpu_torch.data.volumes import make_view_stacks
+    from pmpu_tpu_torch.device import resolve_device
+    from pmpu_tpu_torch.train.steps import create_train_state, make_train_step
+    from pmpu_tpu_torch.train.tasks import make_task
+
+    device = resolve_device(DEVICE)
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    s = CUBE
+    batch = int(os.environ.get("BENCH_TRAIN_BATCH", "128"))
+    n_steps = int(os.environ.get("BENCH_TRAIN_STEPS", "10"))
+    rng = np.random.default_rng(0)
+    imgs = rng.random((2, s, s, s)).astype(np.float32)
+    lbls = rng.integers(0, 3, size=(2, s, s, s)).astype(np.int32)
+    vt_i = torch.from_numpy(make_view_stacks(imgs)).to(device)
+    vt_l = torch.from_numpy(make_view_stacks(lbls)).to(device)
+    index = build_index_map(lbls, filter=False)
+    task = make_task("probunet", num_filters=FILTERS, dtype=torch.bfloat16 if BF16 else None,
+                     device=device, seed=0, train=True)
+    state = create_train_state(task, seed=0)
+    step = make_train_step(task, acc_steps=1, sampler=sample_batch_vt)
+    triples = torch.from_numpy(index[np.arange(batch) % len(index)]).to(device)
+
+    mode = FlopCounterMode(display=False)
+    with mode:  # the first warm-up step, counted
+        step(state, vt_i, vt_l, triples, 1e-4)
+    flops = float(mode.get_total_flops())
+    step(state, vt_i, vt_l, triples, 1e-4)
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        state, metrics = step(state, vt_i, vt_l, triples, 1e-4)
+    sync()
+    sec = (time.perf_counter() - t0) / n_steps
+    loss = float(metrics["loss"])
+    if not np.isfinite(loss):
+        raise RuntimeError(f"bench train: loss {loss} after {n_steps + 2} steps")
+    slices_per_sec = batch / sec
+
+    vs = None
+    base = _load_baseline("reference_cpu_train.json")
+    if base and base.get("cube") == s and list(FILTERS) == base.get("num_filters"):
+        vs = slices_per_sec / base["slices_per_sec"]
+    peak = _peak_tflops(device)
+    tflops = flops / sec / 1e12
+    return {
+        "metric": f"train slices/sec/chip ({s}^2 slices, probunet, batch {batch}, bf16={BF16})",
+        "value": slices_per_sec,
+        "unit": "slices/s",
+        "vs_baseline": vs,
+        "train_slices_per_sec_per_chip": slices_per_sec,
+        "train_batch": batch,
+        "train_vs_baseline": vs,
+        "train_flops_per_step": flops,
+        "train_achieved_tflops": tflops,
+        "train_mfu": tflops / peak if peak else None,
+        "train_sec_per_step": sec,
+        "train_steps": n_steps,
+        "train_loss": loss,
+        "train_max_memory_bytes": torch.cuda.max_memory_allocated(device) if cuda else None,
+        "device": _device_name(device),
+        "bf16": BF16,
+    }
+
+
 def main() -> int:
-    if MODE == "train":
-        print("bench_torch.py: BENCH_MODE=train: training is not ported yet", file=sys.stderr)
+    if MODE not in ("infer", "train"):
+        print(f"bench_torch.py: unknown BENCH_MODE={MODE!r} (expected 'infer' or 'train')",
+              file=sys.stderr)
         return 2
-    if MODE != "infer":
-        print(f"bench_torch.py: unknown BENCH_MODE={MODE!r} (expected 'infer')", file=sys.stderr)
-        return 2
-    print(json.dumps(bench_infer()))
+    print(json.dumps(bench_train() if MODE == "train" else bench_infer()))
     return 0
 
 

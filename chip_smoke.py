@@ -102,6 +102,30 @@ Phases, each printing at least one line; any failure exits non-zero:
              within 1e-6, its exports byte-equal, cropped to the source
              shapes with the source affines), and with ``--mmap-store`` and
              ``--eval-mode batched`` (the same reports).
+10. train  — the training path: the gather kernel at training shapes (2
+             view stacks of 128³, 768 planes; batches of 2, 8 and 128 with
+             labels, bit-exact; timed at 128 beside its bound); the
+             full-width bf16 train loss's μ/log σ head weight, bias and
+             input gradients (f32 convs in a bf16 step) against float64 on
+             the CPU from the same captured head inputs, weights and output
+             gradients, within 1e-5 of the largest, and the same with the
+             backward guard patched out; the
+             full-width bf16 train step at batch 8 (4 microbatches of 2, the
+             CLI's rule) and 32 (one), gather launches counted from 0 around
+             the timed steps (one a microbatch), ms a step, slices/s, peak
+             allocated, every loss finite; ``bench_torch.py`` with
+             ``BENCH_MODE=train`` in-process at 4 steps (every key); then
+             ``python -m pmpu_tpu_torch.train`` as a subprocess (full width,
+             bf16, batch 2, 1 epoch, 3 scans labeled in a central 11³ block:
+             99 slices) writing its epoch checkpoint and ``probunet_model.pt``,
+             the checkpoint read by ``load_for_inference`` and one volume
+             evaluated from it; beside the subprocess, f32 train steps of
+             probunet 8,16 at 32² (2 at ``acc_steps`` 1, 1 at 4, injected eps)
+             on the card against the CPU: losses within 1e-5 relative, the
+             first step's gradients within 1e-5 relative L2, every parameter
+             and BatchNorm buffer within 1e-5 + 1e-5·|cpu|; the same with the
+             train step's backward guard patched out prints what TF32 would
+             change.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--json PATH`` also writes
@@ -1568,6 +1592,290 @@ def phase_eval(card, task):
             "cli_wall_s": walls, "store_load_s": load_s, "ged_line": ged}
 
 
+def labeled_scans(n, cube, seed, block=None):
+    """n seeded scans of ``synthetic_volume`` as (N,S,S,S) f32 images and
+    int32 labels; with ``block`` = (lo, hi) only the labels inside the
+    central cube [lo, hi)³ are kept."""
+    pairs = [synthetic_volume(cube, seed + i) for i in range(n)]
+    img, lbl = np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
+    if block is not None:
+        keep = np.zeros_like(lbl)
+        keep[:, block[0]:block[1], block[0]:block[1], block[0]:block[1]] = 1
+        lbl = lbl * keep
+    return img, lbl
+
+
+def gather_train_cost(b, s):
+    """(bound ms, bytes) of one training gather: B image and label planes
+    read once and written once, the ids read; 2 f32 operations a pixel."""
+    nbytes = 16 * b * s * s + 8 * b
+    return max(nbytes / PEAK_HBM_BYTES, 2 * b * s * s / PEAK_F32_FLOPS) * 1e3, nbytes
+
+
+TRAIN_PARITY = ((1, 2, (0.05, 0.02)), (4, 8, (0.05,)))  # (acc_steps, batch, lr a step)
+
+
+def train_parity_runs(device, data, plan):
+    """The f32 probunet 8,16 train steps of ``plan`` on ``device`` from seed
+    5: per configuration (losses, pre-clip gradients of the first step as
+    one f32 vector, the state_dict after its steps)."""
+    from pmpu_tpu_torch.data.sampler import sample_batch_vt
+    from pmpu_tpu_torch.train import steps
+    from pmpu_tpu_torch.train.tasks import make_task
+
+    vt_i, vt_l = (t.to(device) for t in data)
+    out = []
+    clip = torch.nn.utils.clip_grad_value_
+    for (acc, _, lrs), runs in zip(TRAIN_PARITY, plan):
+        task = make_task("probunet", num_filters=(8, 16), device=device, seed=5, train=True)
+        state = steps.create_train_state(task, seed=0)
+        step = steps.make_train_step(task, acc_steps=acc, sampler=sample_batch_vt)
+        grads, losses = [], []
+
+        def spy(params, value):
+            if not grads:
+                grads.append(torch.cat([p.grad.reshape(-1).cpu() for p in params
+                                        if p.grad is not None]))
+            return clip(params, value)
+
+        torch.nn.utils.clip_grad_value_ = spy
+        try:
+            for lr, (rows, eps) in zip(lrs, runs):
+                _, m = step(state, vt_i, vt_l, rows.to(device), lr, eps)
+                losses.append(float(m["loss"]))
+        finally:
+            torch.nn.utils.clip_grad_value_ = clip
+        out.append((losses, grads[0], {k: v.cpu() for k, v in task.net.state_dict().items()}))
+    return out
+
+
+def train_parity_diff(got, want):
+    """Max relative loss difference, relative L2 difference of the first
+    step's gradients, and max |diff| − 1e-5·|want| over the state_dicts
+    (≤ 1e-5 passes the stated tolerance)."""
+    loss = max(abs(a - b) / abs(b) for (g, _, _), (w, _, _) in zip(got, want)
+               for a, b in zip(g, w))
+    grad = max(float((g - w).norm() / w.norm()) for (_, g, _), (_, w, _) in zip(got, want))
+    state = max(float(((sg[k] - sw[k]).abs() - 1e-5 * sw[k].abs()).max())
+                for (_, _, sg), (_, _, sw) in zip(got, want) for k in sw)
+    return loss, grad, state
+
+
+def head_grad_error(task, vt_i, vt_l, rows, generator):
+    """One train loss of ``task`` on the card, backward through
+    ``steps.backward``: the largest |difference| between the μ/log σ head
+    convs' weight, bias and input gradients and the same gradients in
+    float64 on the CPU from the heads' captured inputs, weights and output
+    gradients, over the largest |float64 gradient| of each (both heads)."""
+    from pmpu_tpu_torch.data.sampler import sample_batch_vt
+    from pmpu_tpu_torch.train import steps
+
+    heads = [task.net.prior.conv_layer, task.net.posterior.conv_layer]
+    seen = {}
+
+    def capture(mod, inputs, output):
+        seen[mod] = {"x": inputs[0].detach()}
+        inputs[0].register_hook(lambda g: seen[mod].__setitem__("dx", g.detach()))
+        output.register_hook(lambda g: seen[mod].__setitem__("g", g.detach()))
+
+    hooks = [h.register_forward_hook(capture) for h in heads]
+    try:
+        task.net.zero_grad(set_to_none=True)
+        img, msk = sample_batch_vt(vt_i, vt_l, rows)
+        loss, _ = task.train_loss(img, msk, generator)
+        steps.backward(loss)
+    finally:
+        for h in hooks:
+            h.remove()
+    err = 0.0
+    for h in heads:
+        x, g = (seen[h][k].double().cpu()[:, :, 0, 0] for k in "xg")  # (N,Cin), (N,Cout)
+        w = h.weight.detach().double().cpu()[:, :, 0, 0]  # (Cout,Cin)
+        for got, ref in ((h.weight.grad[:, :, 0, 0], g.T @ x), (h.bias.grad, g.sum(0)),
+                         (seen[h]["dx"][:, :, 0, 0], g @ w)):
+            err = max(err, float((got.double().cpu() - ref).abs().max() / ref.abs().max()))
+    task.net.zero_grad(set_to_none=True)
+    return err
+
+
+def phase_train(card):
+    import contextlib
+
+    from pmpu_tpu_torch import VolumeEvaluator
+    from pmpu_tpu_torch.config import Config
+    from pmpu_tpu_torch.data import nifti
+    from pmpu_tpu_torch.data.index_map import build_index_map
+    from pmpu_tpu_torch.data.sampler import sample_batch_vt
+    from pmpu_tpu_torch.data.volumes import make_view_stacks
+    from pmpu_tpu_torch.ops.cuda.slice_gather import (
+        flat_plane_index,
+        gather_normalize_planes,
+        gather_normalize_planes_reference,
+    )
+    from pmpu_tpu_torch.train import steps
+    from pmpu_tpu_torch.train.checkpoint import load_for_inference
+    from pmpu_tpu_torch.train.loop import acc_steps_for
+    from pmpu_tpu_torch.train.tasks import make_task
+
+    out = {}
+    # (a) the gather kernel at training shapes: 2 view stacks of 128³ (768 planes)
+    print("phase 10: training")
+    s = 128
+    img, lbl = labeled_scans(2, s, seed=60)
+    vt_i = torch.from_numpy(make_view_stacks(img)).cuda()
+    vt_l = torch.from_numpy(make_view_stacks(lbl)).cuda()
+    planes_i, planes_l = vt_i.view(-1, s, s), vt_l.view(-1, s, s)
+    index = build_index_map(lbl, filter=True)
+    rng = np.random.default_rng(61)
+    for b in (2, 8, 128):
+        rows = torch.from_numpy(index[rng.choice(len(index), b, replace=False)]).cuda()
+        ids = flat_plane_index(rows.long(), 2, s)
+        check_gather(planes_i, ids, planes_l, f"a training batch of {b} of 768 planes of 128² "
+                                              "(2 view stacks), labels")
+    g_ms = event_ms(lambda: gather_normalize_planes(planes_i, ids, planes_l), 50)
+    g_plain = event_ms(lambda: gather_normalize_planes_reference(planes_i, ids, planes_l), 20)
+    g_bound, g_bytes = gather_train_cost(128, s)
+    print(f"  [{card}] gather_normalize_planes, training batch of 128 of 768 planes with labels: "
+          f"{g_ms:.4f} ms/launch, plain {g_plain:.4f} ms, bound {g_bound:.4f} ms "
+          f"({g_bytes / 1e6:.1f} MB), {100 * g_bound / g_ms:.1f} % of the bound")
+    out["gather_b128"] = {"ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound}
+
+    # (c) the full-width bf16 step: the CLI's rule at batch 8 (4 microbatches
+    # of 2), then batch 32 in one
+    task = make_task("probunet", dtype=torch.bfloat16, device="cuda", seed=0, train=True)
+    state = steps.create_train_state(task, seed=0)
+    rows = torch.from_numpy(index[rng.choice(len(index), 2, replace=False)]).cuda()
+    head_err = head_grad_error(task, vt_i, vt_l, rows, state.generator)
+    guard = steps.exact_f32
+    steps.exact_f32 = contextlib.nullcontext
+    try:
+        head_tf32 = head_grad_error(task, vt_i, vt_l, rows, state.generator)
+    finally:
+        steps.exact_f32 = guard
+    print(f"  [{card}] full-width bf16 train loss, μ/log σ head weight, bias and input "
+          f"gradients (f32 convs) against "
+          f"float64 on the CPU: max |diff| / max |grad| {head_err:.3g} (allowed 1e-5); with "
+          f"the backward guard patched out (cuDNN allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32}) {head_tf32:.3g}")
+    require(head_err <= 1e-5, f"train: bf16 step head gradients off by {head_err} (relative)")
+    out["head_grad"] = {"rel_err": head_err, "tf32_rel_err": head_tf32}
+    full = {}
+    for batch, acc, n_steps in ((8, acc_steps_for(8), 8), (32, 1, 6)):
+        step = steps.make_train_step(task, acc_steps=acc, sampler=sample_batch_vt)
+        batches = [torch.from_numpy(index[rng.choice(len(index), batch, replace=False)]).cuda()
+                   for _ in range(n_steps + 2)]
+        for rows in batches[:2]:  # warm-up
+            step(state, vt_i, vt_l, rows, 1e-3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gather_normalize_planes.launches = 0
+        t0 = time.perf_counter()
+        losses = [step(state, vt_i, vt_l, rows, 1e-3)[1]["loss"] for rows in batches[2:]]
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / n_steps
+        launches = gather_normalize_planes.launches
+        losses = [float(x) for x in losses]
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  [{card}] full-width bf16 step, batch {batch} ({acc} x {batch // acc}): "
+              f"{1e3 * sec:.1f} ms/step, {batch / sec:.1f} slices/s, gather launches "
+              f"{launches} in {n_steps} steps, peak allocated {peak / 2**30:.2f} GiB, "
+              f"losses {losses[0]:.1f} … {losses[-1]:.1f}")
+        require(launches == n_steps * acc,
+                f"train: {launches} gather launches in {n_steps} steps of {acc} microbatches")
+        require(all(np.isfinite(losses)), f"train: a loss is not finite: {losses}")
+        full[batch] = {"acc_steps": acc, "ms_per_step": 1e3 * sec, "slices_per_s": batch / sec,
+                       "gather_launches_per_step": launches / n_steps, "peak_bytes": peak,
+                       "losses": losses}
+    out["full"] = full
+    del task, state, step, vt_i, vt_l, planes_i, planes_l
+    torch.cuda.empty_cache()
+
+    # (e) bench_torch.py BENCH_MODE=train at a reduced step count
+    line = json.loads(run_bench({"BENCH_MODE": "train", "BENCH_TRAIN_STEPS": "4"}))
+    keys = {"metric", "value", "unit", "vs_baseline", "train_slices_per_sec_per_chip",
+            "train_batch", "train_vs_baseline", "train_flops_per_step",
+            "train_achieved_tflops", "train_mfu"}
+    require(keys <= set(line), f"bench train: missing keys {keys - set(line)}")
+    require(line["train_batch"] == 128 and line["value"] > 0, f"bench train: {line}")
+    print(f"  bench_torch.py BENCH_MODE=train (4 steps): {json.dumps(line)}")
+    out["bench"] = line
+    torch.cuda.empty_cache()
+
+    # (d) the train CLI as a subprocess (full width, bf16, batch 2, 1 epoch,
+    # 3 scans labeled in a central block of 11³: 99 slices), meanwhile (b)
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        d = tmp.name
+        cimg, clbl = labeled_scans(3, s, seed=70, block=(59, 70))
+        for i in range(3):
+            nifti.save(os.path.join(d, "DATA", "images", f"scan{i}.nii"), cimg[i])
+            nifti.save(os.path.join(d, "DATA", "labels", f"scan{i}.nii"),
+                       clbl[i].astype(np.float32))
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+        cmd = [sys.executable, "-m", "pmpu_tpu_torch.train", "-m", "probunet", "-d", "DATA",
+               "--bf16", "-b", "2", "-e", "1", "--checkpoint-dir", "ck"]
+        t_cli = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=d, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        try:
+            # (b) f32 train steps, the card against the CPU, injected eps
+            p_img, p_lbl = labeled_scans(2, 32, seed=62)
+            data = (torch.from_numpy(make_view_stacks(p_img)),
+                    torch.from_numpy(make_view_stacks(p_lbl)))
+            p_index = build_index_map(p_lbl)
+            g = torch.Generator().manual_seed(63)
+            prng = np.random.default_rng(64)
+            plan = [[(torch.from_numpy(p_index[prng.choice(len(p_index), batch, replace=False)]),
+                      [torch.randn((batch // acc, 6), generator=g) for _ in range(acc)])
+                     for _ in lrs] for acc, batch, lrs in TRAIN_PARITY]
+            cpu = train_parity_runs("cpu", data, plan)
+            gpu = train_parity_runs("cuda", data, plan)
+            loss_d, grad_d, state_d = train_parity_diff(gpu, cpu)
+            guard = steps.exact_f32
+            steps.exact_f32 = contextlib.nullcontext
+            try:
+                tf32 = train_parity_diff(train_parity_runs("cuda", data, plan), cpu)
+            finally:
+                steps.exact_f32 = guard
+            print(f"  f32 train steps, card vs CPU (probunet 8,16, 32², 2 steps at acc 1, 1 at "
+                  f"acc 4, cuDNN allow_tf32={torch.backends.cudnn.allow_tf32}): loss max rel "
+                  f"diff {loss_d:.3g}, first-step gradients rel L2 {grad_d:.3g}, state excess "
+                  f"over 1e-5 + 1e-5·|cpu| {state_d:.3g}")
+            print(f"  with the backward guard patched out (TF32 backward convolutions): loss "
+                  f"{tf32[0]:.3g}, gradients rel L2 {tf32[1]:.3g}, state excess {tf32[2]:.3g}")
+            require(loss_d <= 1e-5, f"train parity: loss differs by {loss_d} (relative)")
+            require(grad_d <= 1e-5, f"train parity: gradients differ by {grad_d} (relative L2)")
+            require(state_d <= 1e-5, "train parity: a parameter or BatchNorm buffer differs by "
+                                     f"more than 1e-5 + 1e-5·|cpu| (excess {state_d})")
+            out["parity"] = {"loss_rel": loss_d, "grad_rel_l2": grad_d, "state_excess": state_d,
+                             "tf32_loss_rel": tf32[0], "tf32_grad_rel_l2": tf32[1],
+                             "tf32_state_excess": tf32[2]}
+            stdout, err = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        cli_s = time.perf_counter() - t_cli
+        require(proc.returncode == 0, f"train CLI exited {proc.returncode}:\n{err[-4000:]}")
+        written = sorted(os.listdir(os.path.join(d, "ck")))
+        require(written == ["probunet_checkpoint0.pt", "probunet_model.pt"],
+                f"train CLI wrote {written}")
+        steps_line = [ln for ln in err.splitlines() if "epoch 1/1 done" in ln]
+        task, _ = load_for_inference(os.path.join(d, "ck", "probunet_checkpoint0.pt"), Config(),
+                                     device="cuda")
+        r = VolumeEvaluator(task, device="cuda").evaluate_volume(cimg[0], clbl[0])
+        require(bool(torch.isfinite(r["fused"]).all()) and r["argmax"].shape == (s, s, s),
+                "train CLI: the checkpoint's evaluation is not finite")
+        print(f"  train CLI (subprocess, 1 epoch, batch 2, bf16): {cli_s:.1f} s of wall with "
+              f"the parity check beside it; {written}; {steps_line[-1:] or err[-300:]}; "
+              f"evaluate_volume from its checkpoint: Dice {np.round(r['dice'], 4).tolist()}")
+        out["cli_s"] = cli_s
+    finally:
+        tmp.cleanup()
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write all measurements to this file")
@@ -1623,12 +1931,19 @@ def main() -> int:
     clock.append(("stream", time.perf_counter()))
     summary["eval"] = phase_eval(card, task)
     clock.append(("eval", time.perf_counter()))
+    del task, vol, truth, r_bf16
+    torch.cuda.empty_cache()
+    summary["train"] = phase_train(card)
+    clock.append(("train", time.perf_counter()))
     summary["phase_s"] = {name: b - a for (_, a), (name, b) in zip(clock, clock[1:])}
     summary["phase_s"]["build"] = build_s
     print(f"seconds by phase: { {k: round(v, 1) for k, v in summary['phase_s'].items()} }; "
           f"from the start {time.perf_counter() - START:.1f} s")
     gather = next(k for k in kernels if k["name"] == "gather_normalize_planes")
     gather.update({f"{k}_768": v for k, v in summary["oblique"]["gather_768"].items()})
+    gather.update({f"{k}_train_b128": v for k, v in summary["train"]["gather_b128"].items()})
+    gather["train_launches_per_step"] = {
+        str(b): f["gather_launches_per_step"] for b, f in summary["train"]["full"].items()}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:

@@ -16,7 +16,9 @@ views, in float and in int8, and the generalized energy distance of one
 volume (``inference.engine.VolumeEvaluator``); the serving stream and the
 predict CLI (``python -m pmpu_tpu_torch.predict``); the host volume store
 (``data.volumes.VolumeStore``), store evaluation, sequential and batched,
-and the eval CLI (``python -m pmpu_tpu_torch.eval``).
+and the eval CLI (``python -m pmpu_tpu_torch.eval``); training of both
+models on the 3 standard views (``train.loop.train_net``, the train CLI
+``python -m pmpu_tpu_torch.train``).
 """
 
 from pmpu_tpu_torch.inference.engine import VolumeEvaluator

@@ -1,9 +1,21 @@
-"""Arbitrary-axis (oblique) plane sampling (counterpart of
-``pmpu_tpu/data/sampler.py:226-310``).
+"""Slice samplers of training and arbitrary-axis (oblique) plane sampling
+(counterpart of ``pmpu_tpu/data/sampler.py``).
 
-``view_basis`` and ``fibonacci_views`` are numpy copies of the JAX
-package's. ``trilinear`` and ``oblique_plane`` are plain PyTorch with the
-JAX operation order, each step one rounded f32 operation:
+Training (``sample_batch`` :55, ``sample_batch_vt`` :74): a batch of
+(scan, view, slice) rows becomes (B,S,S,1) f32 image planes, each divided
+by its own max (left as it is when the max is 0), and (B,S,S,1) int32
+label planes. ``sample_batch_vt`` gathers whole planes of the (3,N,S,S,S)
+view stacks: on CUDA tensors that is one launch of the gather-normalize
+kernel (``ops/cuda/slice_gather.py``), on CPU ones its plain version; it is
+also the counterpart of ``ops/pallas/slice_gather.py::sample_batch_fused``
+:104 (``--pallas-sampler``), which the JAX tests hold bit-equal to it.
+``sample_batch`` reads the plain (N,S,S,S) stack with plain PyTorch
+indexing (the JAX package has no kernel for that layout).
+
+Oblique planes (:226-310): ``view_basis`` and ``fibonacci_views`` are
+numpy copies of the JAX package's. ``trilinear`` and ``oblique_plane`` are
+plain PyTorch with the JAX operation order, each step one rounded f32
+operation:
 
   coords = ((center + u·b0) + v·b1) + off·b2,  grid = arange(S) − (S−1)/2
   frac   = c − floor(c)
@@ -19,6 +31,38 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from pmpu_tpu_torch.ops.cuda.slice_gather import flat_plane_index, gather_normalize_planes
+
+
+def sample_batch(images: torch.Tensor, labels: torch.Tensor, triples: torch.Tensor):
+    """(N,S,S,S) f32 images and int labels + (B,3) rows → ((B,S,S,1) f32
+    normalized, (B,S,S,1) int32). Plane (a, b) of row (n, v, i) is voxel
+    ``[i,a,b]``, ``[a,i,b]`` or ``[a,b,i]`` of volume n for v = 0, 1, 2."""
+    s = images.shape[-1]
+    tr = triples.long()
+    n, v, i = (tr[:, k, None, None] for k in range(3))
+    a = torch.arange(s, device=images.device)[:, None]
+    b = torch.arange(s, device=images.device)[None, :]
+    x = torch.where(v == 0, i, a)
+    y = torch.where(v == 0, a, torch.where(v == 1, i, b))
+    z = torch.where(v == 2, i, b)
+    img = images[n, x, y, z].float()
+    m = torch.amax(img, dim=(1, 2), keepdim=True)
+    img = torch.where(m == 0, img, img / m)
+    return img[..., None], labels[n, x, y, z].int()[..., None]
+
+
+def sample_batch_vt(vt_images: torch.Tensor, vt_labels: torch.Tensor, triples: torch.Tensor):
+    """The same batch from the (3,N,S,S,S) f32 image and int32 label view
+    stacks, every row one whole plane: one launch of the gather-normalize
+    kernel on CUDA tensors, its plain version on CPU ones (bit-equal to
+    ``sample_batch`` on the plain stack)."""
+    _, n, s = vt_images.shape[:3]
+    flat = flat_plane_index(triples.long(), n, s)
+    imgs, lbls = gather_normalize_planes(
+        vt_images.reshape(-1, s, s), flat, vt_labels.reshape(-1, s, s))
+    return imgs[..., None], lbls[..., None]
 
 
 def view_basis(normal) -> np.ndarray:

@@ -3,7 +3,7 @@
 ``pad_to_cube`` :55, ``SourceGeom`` :86, ``crop_to_source`` :96,
 ``geom_from_header`` :104, ``restore_geometry`` :110, ``_read_geoms`` :121,
 ``VolumeStore`` :132 with ``from_dirs`` :148, ``_from_dirs_mmap`` :255 and
-``from_arrays`` :346). ``make_view_stacks`` belongs to the training path.
+``from_arrays`` :346) and ``make_view_stacks`` :26, the training layout.
 
 Each NIfTI volume of a ``{images,labels}`` tree is loaded once (the native
 loader, ``data/native.py``, or the numpy reader) and padded to the common
@@ -28,6 +28,14 @@ from dataclasses import dataclass
 import numpy as np
 
 from pmpu_tpu_torch.data import native, nifti
+
+
+def make_view_stacks(arr: np.ndarray) -> np.ndarray:
+    """(N,S,S,S) → (3,N,S,S,S) per-view stacks: ``stack[v, n, i]`` is slice
+    i of volume n along axis v as one contiguous (S,S) plane, so a training
+    batch is a gather of whole planes (``sampler.sample_batch_vt``, the
+    gather-normalize kernel on the card)."""
+    return np.stack([arr, arr.transpose(0, 2, 1, 3), arr.transpose(0, 3, 1, 2)])
 
 
 def _squeeze3d_shape(sh, path: str) -> tuple:

@@ -28,8 +28,9 @@ def exact_f32():
     """TF32 off for the f32 convolutions (cuDNN) and matmuls (cuBLAS) run
     inside, whatever the process set (PyTorch's default lets cuDNN use
     TF32); both settings are restored on exit. The JAX package computes
-    these in exact f32. Callers enter it only for f32 operands, so the bf16
-    path pays nothing."""
+    these in exact f32. A forward op enters it only for f32 operands
+    (:func:`exact_f32_if`); the train step's backward enters it in every
+    dtype, since the flags change no bf16 op."""
     conv, mm = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")

@@ -7,12 +7,12 @@
                                 f32 conv → (μ, log σ) → ``DiagGaussian``
 * ``Fcomb``                   — the ``no_convs_fcomb`` 1×1 convs that combine
                                 z with the U-Net features; decoded by
-                                ``ProbabilisticUNet.decode_samples``
+                                ``ProbabilisticUNet.decode`` (one draw, in
+                                training) and ``decode_samples``
 * ``ProbabilisticUNet``       — UNet backbone (``apply_last_layer=False``;
                                 ``split_decoder`` as in ``UNet``),
-                                prior p(z|x) and posterior q(z|x,y); eval
-                                never runs the posterior, which exists so
-                                that the reference weights load strictly.
+                                prior p(z|x) and posterior q(z|x,y); the
+                                posterior runs in training only.
 
 Tensors at the public functions are NHWC, as in the JAX package.
 """
@@ -27,7 +27,7 @@ from torch import nn
 
 from pmpu_tpu_torch.models import initializers as pinit
 from pmpu_tpu_torch.models.distributions import DiagGaussian
-from pmpu_tpu_torch.models.unet import Conv2d, UNet, conv_bn_relu, to_nchw
+from pmpu_tpu_torch.models.unet import Conv2d, UNet, conv_bn_relu, to_nchw, to_nhwc
 from pmpu_tpu_torch.ops.cuda.fcomb_mean import decode_samples_reference
 
 
@@ -145,6 +145,18 @@ class ProbabilisticUNet(nn.Module):
         """The fcomb's parameters by torch name (``layers.0.weight``, ...),
         the port's counterpart of ``variables["params"]["fcomb"]``."""
         return dict(self.fcomb.named_parameters())
+
+    def decode(self, unet_features, z):
+        """One draw (N,latent) → (N,H,W,C) f32 logits through the fcomb's
+        modules: concat(features, z tiled over H×W), the 1×1 convs with
+        ReLU, the head (JAX ``Fcomb.__call__``; the training path)."""
+        x = to_nchw(unet_features)
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        n, _, h, w = x.shape
+        z_map = z.to(x.dtype)[:, :, None, None].expand(n, z.shape[-1], h, w)
+        x = self.fcomb.layers(torch.cat([x, z_map], dim=1))
+        return to_nhwc(self.fcomb.last_layer(x).float())
 
     def decode_samples(self, unet_features, zs):
         """(S,N,latent) draws → (S,N,H,W,C) f32 logits, the plain factored

@@ -1,6 +1,7 @@
 """Deterministic 2-D U-Net (counterpart of ``pmpu_tpu/models/unet.py:78-272``).
 
-* ``DoubleConv`` — 2 × [3×3 conv (pad 1) → BatchNorm (eps 1e-5) → ReLU]
+* ``DoubleConv`` — 2 × [3×3 conv (pad 1) → BatchNorm (eps 1e-5, flax's
+                   statistics in train mode) → ReLU]
 * ``Down``       — 2×2 max-pool then DoubleConv
 * ``Up``         — 2×2 stride-2 transposed conv (halving channels),
                    pad-to-match, concat(skip, upsampled), DoubleConv; with
@@ -23,7 +24,9 @@ f32 and each conv casts its input, weight and bias to the compute dtype;
 BatchNorm normalizes in f32 with f32 statistics and rounds its output once
 to the input's dtype (flax ``BatchNorm(dtype=...)``); the head casts to f32.
 An f32 conv runs with TF32 off (``device.exact_f32_if``), as the JAX package
-computes it; a bf16 conv enters no such context.
+computes it; a bf16 conv enters no such context. The backward convs of a
+train step run after these guards have exited: the step guards its
+backward pass itself (``train/steps.py::backward``).
 """
 
 from __future__ import annotations
@@ -96,9 +99,21 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
 
 class BatchNorm2d(nn.Module):
-    """Inference BatchNorm over running statistics: f32 arithmetic, one
-    rounding to the input's dtype. Holds exactly the reference's four
-    tensors (no ``num_batches_tracked``), so strict loads match the export."""
+    """BatchNorm of flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``.
+    Holds exactly the reference's four tensors (no ``num_batches_tracked``),
+    so strict loads match the export.
+
+    Eval mode (``module.eval()``): the running statistics, f32 arithmetic,
+    one rounding to the input's dtype.
+
+    Train mode (``module.train()``), flax's fast variance: f32 batch
+    statistics over N, H and W, ``mean = E[x]`` and ``var = max(E[x²] −
+    mean², 0)``; ``y = (x − mean)·(rsqrt(var + eps)·weight) + bias`` in f32,
+    rounded once to the input's dtype; the running statistics become
+    ``0.9·running + 0.1·batch`` with the **biased** variance (torch's own
+    train-mode BatchNorm would store the unbiased one)."""
+
+    momentum = 0.9
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -109,10 +124,20 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x):
-        return F.batch_norm(
-            x, self.running_mean, self.running_var, self.weight, self.bias,
-            False, 0.0, self.eps,
-        )
+        if not self.training:
+            return F.batch_norm(
+                x, self.running_mean, self.running_var, self.weight, self.bias,
+                False, 0.0, self.eps,
+            )
+        x32 = x.float()
+        mean = x32.mean(dim=(0, 2, 3))
+        var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            for buf, stat in ((self.running_mean, mean), (self.running_var, var)):
+                buf.copy_(self.momentum * buf + (1 - self.momentum) * stat)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x32 - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
 
 
 def conv_bn_relu(cin, cout, compute_dtype, init_fn=pinit.torch_default_):

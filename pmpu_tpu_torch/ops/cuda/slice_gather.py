@@ -11,6 +11,9 @@ A plane of up to 128² floats whose size is a multiple of 4 is read once
 into registers with 16-byte loads, reduced to its max and divided in
 place; other planes take a two-pass general path of the same kernel. It is
 CUDA C++ so that the kernels of the inference path share one build route.
+
+Training gathers its batches with labels from the (3,N,S,S,S) view stacks
+through ``data/sampler.py::sample_batch_vt``: one launch a microbatch.
 """
 
 from __future__ import annotations

@@ -1,12 +1,20 @@
-"""Checkpoint reading and weights from the JAX package's variable tree
-(counterpart of ``pmpu_tpu/train/checkpoint.py:49-53, 225-276, 287-354,
-417-446``).
+"""Checkpoints and weights in the JAX package's variable tree (counterpart
+of ``pmpu_tpu/train/checkpoint.py:29-88, 225-276, 287-354, 417-446``).
 
 ``load_flax_variables`` turns a ``{"params", "batch_stats"}`` tree of arrays
 into the port's ``state_dict`` under the reference's torch module names —
 the tree ``pmpu_tpu.train.checkpoint.export_torch_state_dict`` produces —
-and loads it with ``strict=True``. This module keeps its own copy of the
-name tables; it imports nothing of the JAX package.
+and loads it with ``strict=True``; ``flax_variables`` is the inverse. This
+module keeps its own copy of the name tables; it imports nothing of the JAX
+package.
+
+``save_checkpoint`` writes the JAX package's pickle payload (``params`` and
+``batch_stats`` under flax names, ``step``, ``plateau``, ``extra``) with
+numpy arrays and builtins only, so the JAX package's ``load_for_inference``
+and ``restore_train_state`` read it; ``rng_key`` and ``opt_state`` are None
+and the port's own momentum buffers and generator state go under keys of
+their own. ``restore_train_state`` resumes from either package's file (a
+JAX file has no port momentum: it starts fresh).
 
 ``load_checkpoint`` reads the JAX package's pickle checkpoint without jax:
 the pickled optimizer state names optax's state classes, which a
@@ -20,6 +28,7 @@ raise.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 import pickle
 from collections.abc import Mapping
@@ -28,6 +37,8 @@ import numpy as np
 import torch
 
 from pmpu_tpu_torch.models import ProbabilisticUNet, UNet
+
+log = logging.getLogger(__name__)
 
 
 def _unet_name_pairs(num_filters):
@@ -118,20 +129,59 @@ def flax_to_state_dict(variables, pairs) -> dict:
     return sd
 
 
+def _assign(tree: dict, path, value):
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def state_dict_to_flax(sd, pairs) -> dict:
+    """Torch-layout state_dict → ``{"params", "batch_stats"}`` numpy trees
+    under flax names, the inverse of :func:`flax_to_state_dict` (kernels
+    OIHW → HWIO and (cin,cout,kh,kw) → (kh,kw,cout,cin), one permutation).
+    A tensor of the state_dict that no pair reads raises."""
+    sd = {k: np.array(v.detach().cpu() if hasattr(v, "detach") else v, copy=True)
+          for k, v in sd.items()}
+    params, stats, used = {}, {}, set()
+    for flax_path, prefix, kind in pairs:
+        if kind in ("conv", "deconv"):
+            _assign(params, (*flax_path, "kernel"),
+                    np.ascontiguousarray(np.transpose(sd[f"{prefix}.weight"], (2, 3, 1, 0))))
+            _assign(params, (*flax_path, "bias"), sd[f"{prefix}.bias"])
+            used |= {f"{prefix}.weight", f"{prefix}.bias"}
+        else:
+            for tname, fname, tree in (("weight", "scale", params), ("bias", "bias", params),
+                                       ("running_mean", "mean", stats),
+                                       ("running_var", "var", stats)):
+                _assign(tree, (*flax_path, fname), sd[f"{prefix}.{tname}"])
+                used.add(f"{prefix}.{tname}")
+    extra = sorted(set(sd) - used)
+    if extra:
+        raise ValueError(f"tensors of the state_dict that the flax tree does not have: {extra}")
+    return {"params": params, "batch_stats": stats}
+
+
+def module_name_pairs(module: torch.nn.Module):
+    if isinstance(module, ProbabilisticUNet):
+        return probunet_name_pairs(module.num_filters, module.no_convs_per_block,
+                                   module.no_convs_fcomb)
+    if isinstance(module, UNet):
+        return _unet_name_pairs(module.num_filters)
+    raise TypeError(f"unsupported module {type(module).__name__}")
+
+
+def flax_variables(module: torch.nn.Module) -> dict:
+    """The port model's weights as the JAX package's variable tree (numpy)."""
+    return state_dict_to_flax(module.state_dict(), module_name_pairs(module))
+
+
 @torch.no_grad()
 def load_flax_variables(module: torch.nn.Module, variables) -> torch.nn.Module:
     """Load the JAX package's ``{"params", "batch_stats"}`` tree (numpy or
     array-like leaves) into a port ``UNet`` or ``ProbabilisticUNet`` with
     ``strict=True``; a missing or extra tensor raises."""
-    if isinstance(module, ProbabilisticUNet):
-        pairs = probunet_name_pairs(module.num_filters, module.no_convs_per_block,
-                                    module.no_convs_fcomb)
-    elif isinstance(module, UNet):
-        pairs = _unet_name_pairs(module.num_filters)
-    else:
-        raise TypeError(f"load_flax_variables: unsupported module {type(module).__name__}")
     sd = {k: torch.from_numpy(np.array(v, dtype=np.float32))
-          for k, v in flax_to_state_dict(variables, pairs).items()}
+          for k, v in flax_to_state_dict(variables, module_name_pairs(module)).items()}
     module.load_state_dict(sd, strict=True)
     return module
 
@@ -185,10 +235,79 @@ class _CheckpointUnpickler(pickle.Unpickler):
         raise pickle.UnpicklingError(f"checkpoint names {module}.{name}, which is not read")
 
 
+def save_checkpoint(path: str, state, plateau=None, extra: dict | None = None):
+    """Write a training state (``steps.TrainState``) as the JAX package's
+    pickle payload, atomically (a temporary file renamed over ``path``)."""
+    net = state.net
+    names = {p: n for n, p in net.named_parameters()}
+    momentum = {names[p]: s["momentum_buffer"].detach().cpu().numpy()
+                for p, s in state.optimizer.state.items()
+                if s.get("momentum_buffer") is not None}
+    payload = {
+        **flax_variables(net),
+        "opt_state": None,
+        "step": int(state.step),
+        "plateau": plateau.state_dict() if plateau is not None else None,
+        "rng_key": None,
+        "extra": extra or {},
+        "torch_momentum": momentum,
+        "torch_generator": state.generator.get_state().numpy(),
+    }
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(payload, f, protocol=4)
+    os.replace(tmp, path)
+
+
+def _merge(cur: dict, new) -> dict:
+    """``cur`` with each leaf that ``new`` has at the same path and shape
+    taken from ``new`` (the JAX package's lenient restore)."""
+    out = {}
+    for k, v in cur.items():
+        cand = new.get(k) if isinstance(new, Mapping) else None
+        if isinstance(v, dict):
+            out[k] = _merge(v, cand)
+        elif cand is not None and np.shape(cand) == v.shape:
+            out[k] = np.asarray(cand, v.dtype)
+        else:
+            out[k] = v
+    return out
+
+
+def restore_train_state(path: str, state) -> dict:
+    """Resume ``state`` from a pickle checkpoint of either package and
+    return its payload (the loop restores the plateau from it). Weights and
+    BatchNorm statistics load where the file has them at the model's shapes,
+    as the JAX restore does; the step always. From a port checkpoint also
+    the momentum buffers and the generator; a JAX checkpoint carries optax
+    state, which the port does not read, so the momentum starts fresh."""
+    payload = load_checkpoint(path)
+    cur = flax_variables(state.net)
+    load_flax_variables(state.net, {k: _merge(cur[k], payload.get(k)) for k in cur})
+    state.step = int(payload.get("step") or 0)
+    momentum = payload.get("torch_momentum")
+    if momentum is None:
+        log.info("%s has no port optimizer state (a JAX checkpoint): the momentum "
+                 "starts fresh", path)
+    else:
+        names = {p: n for n, p in state.net.named_parameters()}
+        for p in state.params:
+            buf = momentum.get(names[p])
+            if buf is not None and buf.shape == tuple(p.shape):
+                state.optimizer.state[p]["momentum_buffer"] = torch.from_numpy(buf).to(p)
+    gen = payload.get("torch_generator")
+    if gen is not None and gen.size == state.generator.get_state().numel():
+        state.generator.set_state(torch.from_numpy(np.asarray(gen, np.uint8)))
+    elif gen is not None:
+        log.info("%s holds the generator of another device type: not restored", path)
+    return payload
+
+
 def load_checkpoint(path: str) -> dict:
-    """The JAX package's pickle checkpoint (``save_checkpoint``) as a dict:
-    ``params``, ``batch_stats``, ``step``, ``plateau``, ``rng_key`` and
-    ``extra`` as written; ``opt_state`` holds stubs."""
+    """A pickle checkpoint of either package as a dict: ``params``,
+    ``batch_stats``, ``step``, ``plateau``, ``rng_key`` and ``extra`` as
+    written; a JAX file's ``opt_state`` holds stubs."""
     with open(path, "rb") as f:
         return _CheckpointUnpickler(f).load()
 
@@ -196,8 +315,8 @@ def load_checkpoint(path: str) -> dict:
 def load_for_inference(path: str, cfg, device=None):
     """(task, cfg) of a checkpoint, its weights loaded with ``strict=True``.
 
-    A JAX pickle checkpoint carries its model config (written by the
-    training loop): it overrides ``cfg``'s architecture fields. A reference
+    A pickle checkpoint of either package carries its model config (written
+    by the training loop): it overrides ``cfg``'s architecture fields. A reference
     torch ``state_dict`` (``torch.save``) takes the architecture from
     ``cfg``; its ``num_batches_tracked`` counters (training state the
     inference BatchNorm has no use for) are dropped. An Orbax directory

@@ -1,0 +1,157 @@
+"""Train and eval steps (counterpart of ``pmpu_tpu/train/steps.py``).
+
+One optimizer step (``make_train_step``, the counterpart of
+``build_step_fn`` :116 and ``make_train_step`` :206): ``acc_steps``
+microbatches, each sampled on the device from the resident volume stacks,
+run forward in BatchNorm train mode and backward; the summed gradients are
+divided by ``acc_steps`` once, clipped elementwise at 0.1 and applied by
+SGD with momentum (``make_optimizer`` :37: ``optax.clip(0.1)`` then
+``optax.sgd(lr, momentum)``, which is ``clip_grad_value_`` on the averaged
+gradient then ``torch.optim.SGD(momentum, dampening=0, nesterov=False)``).
+The learning rate is set before each step from the host's plateau
+scheduler (``set_lr`` :53). BatchNorm running statistics advance through
+the microbatches in order, as the JAX step threads ``batch_stats``.
+
+The backward pass runs with TF32 off (``backward``): cuDNN's backward
+convolutions read the TF32 flag when they run, after the forward's own
+per-conv guards have exited; the JAX gradients of f32 convs are exact f32.
+A bf16 step has f32 convs too (the μ/log σ heads), and the flag does not
+touch its bf16 convs, so every step enters the guard.
+
+``mask_inert_bn_biases`` (:79, always on) turns off the gradient of
+every conv bias whose output feeds a train-mode BatchNorm (found by
+structure: a ``Conv2d`` followed by a ``BatchNorm2d`` in one
+``nn.Sequential``); BatchNorm subtracts the batch mean, so that gradient is
+zero analytically, and the biases keep their init values in both packages.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from pmpu_tpu_torch.data.sampler import sample_batch
+from pmpu_tpu_torch.device import exact_f32
+from pmpu_tpu_torch.models.unet import BatchNorm2d
+from pmpu_tpu_torch.ops.metrics import per_class_dice
+
+CLIP = 0.1
+
+
+@dataclass
+class TrainState:
+    """What a step changes: the network (parameters and BatchNorm buffers),
+    the optimizer (momentum buffers), the step count and the generator of
+    the posterior draws (on the network's device)."""
+
+    net: nn.Module
+    optimizer: torch.optim.SGD
+    generator: torch.Generator
+    step: int = 0
+
+    @property
+    def params(self) -> list:
+        return [p for g in self.optimizer.param_groups for p in g["params"]]
+
+
+def make_optimizer(params, momentum: float = 0.9, lr: float = 1e-3) -> torch.optim.SGD:
+    return torch.optim.SGD(params, lr=lr, momentum=momentum, dampening=0.0, nesterov=False)
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float):
+    for g in optimizer.param_groups:
+        g["lr"] = float(lr)
+
+
+def inert_bn_biases(net: nn.Module) -> list:
+    """The biases of the convs whose output goes straight into a BatchNorm."""
+    out = []
+    for seq in net.modules():
+        if isinstance(seq, nn.Sequential):
+            layers = list(seq)
+            out += [a.bias for a, b in zip(layers, layers[1:])
+                    if isinstance(a, nn.Conv2d) and isinstance(b, BatchNorm2d)]
+    return out
+
+
+def mask_inert_bn_biases(net: nn.Module) -> int:
+    """Turn off the gradients of :func:`inert_bn_biases`; returns how many."""
+    biases = inert_bn_biases(net)
+    for b in biases:
+        b.requires_grad_(False)
+    return len(biases)
+
+
+def create_train_state(task, seed: int = 0, momentum: float = 0.9,
+                       lr: float = 1e-3) -> TrainState:
+    """The state of a task made with ``train=True``: the inert biases
+    masked, SGD over the parameters that take gradients, a generator on the
+    network's device seeded by ``seed``."""
+    net = task.net
+    if not net.training:
+        raise ValueError("create_train_state: the task's network is in eval mode; "
+                         "make the task with train=True")
+    mask_inert_bn_biases(net)
+    params = [p for p in net.parameters() if p.requires_grad]
+    device = params[0].device
+    return TrainState(net, make_optimizer(params, momentum, lr),
+                      torch.Generator(device=device).manual_seed(seed))
+
+
+def backward(loss: torch.Tensor):
+    """``loss.backward()`` with TF32 off."""
+    with exact_f32():
+        loss.backward()
+
+
+def make_train_step(task, acc_steps: int = 1, sampler=sample_batch):
+    """step(state, images, labels, triples, lr, eps=None) → (state, metrics).
+
+    * images/labels: the device-resident (N,S,S,S) stacks for
+      ``sample_batch``, or (3,N,S,S,S) view stacks for ``sample_batch_vt``
+      (the gather-normalize kernel, one launch a microbatch)
+    * triples: (acc_steps·micro, 3) int rows (scan, view, slice) on the device
+    * eps: None (draws from ``state.generator``), or one posterior eps per
+      microbatch, (acc_steps, micro, latent)
+    * metrics: the microbatches' mean of each loss term, device scalars
+    """
+    def step(state: TrainState, images, labels, triples, lr, eps=None):
+        params = state.params
+        micro = triples.shape[0] // acc_steps
+        state.optimizer.zero_grad(set_to_none=True)
+        auxes = []
+        for i in range(acc_steps):
+            img, msk = sampler(images, labels, triples[i * micro:(i + 1) * micro])
+            loss, aux = task.train_loss(img, msk, state.generator,
+                                        None if eps is None else eps[i])
+            backward(loss)
+            auxes.append(aux)
+        if acc_steps > 1:
+            with torch.no_grad():
+                for p in params:
+                    if p.grad is not None:
+                        p.grad.div_(acc_steps)
+        torch.nn.utils.clip_grad_value_(params, CLIP)
+        set_lr(state.optimizer, lr)
+        state.optimizer.step()
+        state.step += 1
+        return state, {k: torch.stack([a[k] for a in auxes]).mean() for k in auxes[0]}
+
+    return step
+
+
+def make_eval_step(task, sampler=sample_batch):
+    """step(state, images, labels, triples, eps=None) → (val loss, per-class
+    Dice, preds, img, msk): BatchNorm on running statistics, no gradients
+    (``make_eval_step`` :221). ``eps``: for probunet None or the pair
+    (posterior eps, prior eps)."""
+
+    @torch.no_grad()
+    def step(state: TrainState, images, labels, triples, eps=None):
+        img, msk = sampler(images, labels, triples)
+        loss, preds = task.val_loss(img, msk, state.generator, eps)
+        return loss, per_class_dice(preds, msk, task.n_classes), preds, img, msk
+
+    return step

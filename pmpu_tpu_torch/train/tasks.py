@@ -1,16 +1,27 @@
-"""Task adapters, inference subset (counterpart of
-``pmpu_tpu/train/tasks.py:30-219``): a task owns the network and says how
-many classes it predicts and whether it is probabilistic. Losses and train
-steps come with the training path.
+"""Task adapters (counterpart of ``pmpu_tpu/train/tasks.py:30-219``): a task
+owns the network, says how many classes it predicts and whether it is
+probabilistic, and gives the training loss (``train_loss``), the
+validation loss with its predictions (``val_loss``) and the prediction of
+a batch (``predict``). The inference engine runs the network itself.
 
 A task's network is made from a seed: initialized on the CPU with a
 ``torch.Generator`` (the reference's init families,
 ``models/initializers.py``), then moved to the device in
-``torch.channels_last`` memory, in eval mode.
+``torch.channels_last`` memory. A task for inference (the default) is in
+eval mode with ``requires_grad_(False)``; one made with ``train=True`` is
+in train mode (BatchNorm on batch statistics) with gradients on.
+
+Randomness: a probabilistic loss draws its eps from ``generator`` unless an
+explicit ``eps`` is given (the tests inject the JAX package's draws).
+``val_loss`` and ``predict`` run the network in eval mode and restore the
+mode it was in. The validation loss takes the posterior of the current
+batch (the JAX package's fix of the reference's stale posterior) and its
+Dice prediction a second, independent prior draw.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
 import torch
@@ -18,13 +29,26 @@ import torch
 from pmpu_tpu_torch.device import resolve_device
 from pmpu_tpu_torch.models import ProbabilisticUNet, UNet
 from pmpu_tpu_torch.models.initializers import initialize
+from pmpu_tpu_torch.ops import losses
 
 
-def _place(net: torch.nn.Module, device, seed: int) -> torch.nn.Module:
+def _place(net: torch.nn.Module, device, seed: int, train: bool) -> torch.nn.Module:
     dev = resolve_device(device)
     initialize(net, torch.Generator().manual_seed(seed))
-    # inference only in this slice: eval mode, no autograd state
-    return net.to(dev, memory_format=torch.channels_last).eval().requires_grad_(False)
+    net = net.to(dev, memory_format=torch.channels_last)
+    return net.train().requires_grad_(True) if train else net.eval().requires_grad_(False)
+
+
+@contextlib.contextmanager
+def _eval_mode(net: torch.nn.Module):
+    """Eval mode and no autograd inside; the mode the net was in after."""
+    was = net.training
+    net.eval()
+    try:
+        with torch.no_grad():
+            yield
+    finally:
+        net.train(was)
 
 
 class UNetTask:
@@ -37,16 +61,53 @@ class UNetTask:
         n_classes: int = 1,
         num_filters: Sequence[int] = (64, 128, 256, 512, 1024),
         dtype: Optional[torch.dtype] = None,
+        loss_type: str = "auto",
+        class_weights=None,
         split_decoder: bool = False,
         device=None,
         seed: int = 0,
+        train: bool = False,
     ):
         self.n_classes = n_classes
+        self.loss_type = loss_type  # auto (reference CE/BCE) | dice | ce+dice
+        self.class_weights = class_weights
         self.net = _place(
             UNet(n_channels, n_classes, tuple(num_filters), dtype=dtype,
                  split_decoder=split_decoder),
-            device, seed,
+            device, seed, train,
         )
+
+    def _loss(self, preds, msk):
+        base = losses.unet_loss(preds, msk, self.n_classes, self.class_weights)
+        if self.loss_type == "auto":
+            return base
+        m = msk[..., 0] if msk.dim() == 4 else msk
+        if self.n_classes == 1:
+            dice = losses.soft_dice_loss(preds[..., 0], m.to(preds.dtype))
+        else:
+            probs = torch.softmax(preds, dim=-1)
+            per_class = [
+                losses.soft_dice_loss(probs[..., c], (m == c).to(probs.dtype))
+                for c in range(1, self.n_classes)
+            ]
+            dice = sum(per_class) / len(per_class)
+        return dice if self.loss_type == "dice" else base + dice
+
+    def train_loss(self, img, msk, generator=None, eps=None):
+        """(loss, aux) of one batch in the net's current mode; ``generator``
+        and ``eps`` are unused (the U-Net draws nothing)."""
+        loss = self._loss(self.net(img), msk)
+        return loss, {"loss": loss.detach()}
+
+    def predict(self, img, msk=None, generator=None, eps=None):
+        """Sigmoid probs (1 class) or logits, BatchNorm on running stats."""
+        with _eval_mode(self.net):
+            return self.net(img)
+
+    def val_loss(self, img, msk, generator=None, eps=None):
+        with _eval_mode(self.net):
+            preds = self.net(img)
+            return self._loss(preds, msk), preds
 
 
 class ProbUNetTask:
@@ -60,25 +121,73 @@ class ProbUNetTask:
         num_filters: Sequence[int] = (64, 128, 256, 512, 1024),
         latent_dim: int = 6,
         no_convs_fcomb: int = 4,
+        beta: float = 10.0,
         dtype: Optional[torch.dtype] = None,
+        class_weights=None,
         split_decoder: bool = False,
         device=None,
         seed: int = 0,
+        train: bool = False,
     ):
         self.n_classes = n_classes
+        self.beta = beta
+        self.class_weights = class_weights
         self.net = _place(
             ProbabilisticUNet(
                 input_channels=n_channels, num_classes=n_classes,
                 num_filters=tuple(num_filters), latent_dim=latent_dim,
                 no_convs_fcomb=no_convs_fcomb, dtype=dtype, split_decoder=split_decoder,
             ),
-            device, seed,
+            device, seed, train,
         )
+
+    def train_loss(self, img, msk, generator=None, eps=None):
+        """−ELBO with z_q = posterior.sample: one forward of the three towers
+        in the net's current mode, the draw decoded through the fcomb →
+        (loss, {"loss", "reconstruction_loss", "kl"})."""
+        out = self.net(img, msk.float())
+        z_q = out.posterior.sample(generator, eps)
+        logits = self.net.decode(out.unet_features, z_q)
+        loss, aux = losses.elbo_loss(
+            logits, msk, out.posterior, out.prior, self.beta, self.n_classes,
+            self.class_weights,
+        )
+        aux = {k: v.detach() for k, v in aux.items()}
+        aux["loss"] = loss.detach()
+        return loss, aux
+
+    def predict(self, img, msk=None, generator=None, eps=None, z=None):
+        """A prior draw (or ``z``) decoded: sigmoid probs for 1 class,
+        logits otherwise."""
+        with _eval_mode(self.net):
+            out = self.net(img)
+            if z is None:
+                z = out.prior.sample(generator, eps)
+            logits = self.net.decode(out.unet_features, z)
+        return torch.sigmoid(logits) if self.n_classes == 1 else logits
+
+    def val_loss(self, img, msk, generator=None, eps=None):
+        """(−ELBO from the current batch's posterior, the Dice prediction of
+        an independent prior draw). ``eps``: None, or the pair (posterior
+        eps, prior eps)."""
+        eps_q, eps_p = (None, None) if eps is None else eps
+        with _eval_mode(self.net):
+            out = self.net(img, msk.float())
+            z_q = out.posterior.sample(generator, eps_q)
+            logits = self.net.decode(out.unet_features, z_q)
+            loss, _ = losses.elbo_loss(
+                logits, msk, out.posterior, out.prior, self.beta, self.n_classes
+            )
+            preds = self.net.decode(out.unet_features, out.prior.sample(generator, eps_p))
+        if self.n_classes == 1:
+            preds = torch.sigmoid(preds)
+        return loss, preds
 
 
 def make_task(name: str, **kw):
     """Factory keyed by the reference's ``-m unet|probunet`` flag; ``device``
-    None means ``"cuda"`` and ``seed`` makes the random weights."""
+    None means ``"cuda"``, ``seed`` makes the random weights and
+    ``train=True`` gives the network in train mode with gradients on."""
     if name == "unet":
         kw.setdefault("n_classes", 1)
         return UNetTask(**kw)

@@ -8,6 +8,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 from tests.test_torch_weights import port_task
@@ -39,8 +40,11 @@ def test_import_pulls_in_no_jax():
         "print(len(sys.modules), bad)\n"
     )
     assert _run(code).split()[-1] == "[]"
-    assert len(MODULES) >= 24
-    assert {"pmpu_tpu_torch.eval", "pmpu_tpu_torch.data.native"} <= set(MODULES)
+    assert len(MODULES) >= 40
+    assert {"pmpu_tpu_torch.eval", "pmpu_tpu_torch.data.native", "pmpu_tpu_torch.data.index_map",
+            "pmpu_tpu_torch.train.steps", "pmpu_tpu_torch.train.schedule",
+            "pmpu_tpu_torch.train.loop", "pmpu_tpu_torch.train.__main__",
+            "pmpu_tpu_torch.utils.tblog", "pmpu_tpu_torch.utils.colorize"} <= set(MODULES)
 
 
 def _imports(path):
@@ -85,9 +89,23 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         eval_main(["-d", "no-such-dir"])
-    out = subprocess.run([sys.executable, "bench_torch.py"], cwd=ROOT, capture_output=True,
-                         text=True, timeout=300, env={**os.environ, "BENCH_DEVICE": "cuda"})
-    assert out.returncode != 0 and "no CUDA device" in out.stderr and out.stdout == ""
+    # the train CLI and the training entry points: the same
+    from pmpu_tpu_torch.config import Config
+    from pmpu_tpu_torch.data.volumes import VolumeStore
+    from pmpu_tpu_torch.train.__main__ import main as train_main
+    from pmpu_tpu_torch.train.loop import train_net
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_main(["-d", "no-such-dir"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_net(Config(), VolumeStore.from_arrays(np.zeros((1, 4, 4, 4)), np.zeros((1, 4, 4, 4))))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_task("unet", num_filters=(4, 8), train=True)
+    for mode in ("infer", "train"):
+        out = subprocess.run([sys.executable, "bench_torch.py"], cwd=ROOT, capture_output=True,
+                             text=True, timeout=300,
+                             env={**os.environ, "BENCH_DEVICE": "cuda", "BENCH_MODE": mode})
+        assert out.returncode != 0 and "no CUDA device" in out.stderr and out.stdout == ""
 
 
 def test_kernel_modules_build_and_load_nothing_on_cpu():
@@ -101,11 +119,15 @@ def test_kernel_modules_build_and_load_nothing_on_cpu():
         "subprocess.Popen = no_nvcc\n"
         "from pmpu_tpu_torch.ops.cuda import _build, fcomb_mean, oblique_gather, qconv, slice_gather\n"
         "from pmpu_tpu_torch import VolumeEvaluator\n"
+        "from pmpu_tpu_torch.data.sampler import sample_batch_vt\n"
         "from pmpu_tpu_torch.train.tasks import make_task\n"
         "task = make_task('probunet', num_filters=(4, 8), device='cpu')\n"
         "fcomb_mean.fcomb_mean_decode(torch.rand(2, 4, 4, 4), torch.rand(3, 2, 6),\n"
         "                             task.net.fcomb_params())\n"
         "slice_gather.gather_normalize_planes(torch.rand(3, 4, 4), torch.arange(3))\n"
+        "sample_batch_vt(torch.rand(3, 2, 4, 4, 4),\n"
+        "                torch.zeros(3, 2, 4, 4, 4, dtype=torch.int32),\n"
+        "                torch.tensor([[1, 2, 3]]))\n"
         "qconv.fused_qchain(torch.rand(1, 5, 5, 4), qconv.make_random_chain(0, [(4, 8)]))\n"
         "oblique_gather.oblique_planes(torch.rand(5, 5, 5), torch.eye(3)[None])\n"
         "VolumeEvaluator(task, quantize='int8', eval_batch=8, device='cpu')"

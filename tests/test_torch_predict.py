@@ -41,6 +41,11 @@ BENCH_KEYS = {
     "stream_volumes", "stream_vs_baseline", "stream_mfu", "flops_per_volume", "achieved_tflops",
     "peak_tflops", "mfu", "device", "bf16", "eval_batch", "quantize", "input_dtype",
 }
+# bench.py's train line (metric, value, unit, vs_baseline) and bench_train's keys
+BENCH_TRAIN_KEYS = {
+    "metric", "value", "unit", "vs_baseline", "train_slices_per_sec_per_chip", "train_batch",
+    "train_vs_baseline", "train_flops_per_step", "train_achieved_tflops", "train_mfu",
+}
 
 
 def _run(args, env=None, timeout=300):
@@ -83,14 +88,15 @@ def test_config_matches_jax():
         assert config.Config(**kw).resolved_n_classes() == \
             jax_config.Config(**kw).resolved_n_classes()
     for net in ("unet", "probunet"):
-        for split in (False, True):
-            kw = dict(net=net, bf16=True, num_filters=[4, 8], split_decoder=split)
-            got = config.Config(**kw).task_kwargs()
-            want = jax_config.Config(**kw).task_kwargs()
-            assert got.pop("dtype") is torch.bfloat16 and want.pop("dtype") == jnp.bfloat16
-            want.pop("beta", None)  # a loss option: it comes with the training path
-            assert got == want
-            assert got.get("split_decoder", False) is split
+        for split, loss in ((False, "auto"), (True, "dice")):
+            for weights in (None, [1.0, 2.0, 4.0]):
+                kw = dict(net=net, bf16=True, num_filters=[4, 8], split_decoder=split, loss=loss,
+                          class_weights=weights, beta=3.0)
+                got = config.Config(**kw).task_kwargs()
+                want = jax_config.Config(**kw).task_kwargs()
+                assert got.pop("dtype") is torch.bfloat16 and want.pop("dtype") == jnp.bfloat16
+                assert got == want
+                assert got.get("split_decoder", False) is split
 
 
 @pytest.mark.parametrize("name", ["unet", "probunet"])
@@ -238,16 +244,19 @@ def test_predict_cli_matches_jax_engine(tmp_path, mode):
 def test_bench_torch_prints_one_line_with_every_key(mode):
     env = dict(BENCH_DEVICE="cpu", BENCH_CUBE="16", BENCH_FILTERS="4,8", BENCH_REPEATS="1",
                BENCH_STREAM="2", BENCH_STREAM_ROUNDS="1", BENCH_DEVICE_REPEATS="1",
-               BENCH_MODE=mode)
+               BENCH_TRAIN_BATCH="4", BENCH_TRAIN_STEPS="2", BENCH_MODE=mode)
     out = _run([sys.executable, "bench_torch.py"], env=env)
-    if mode == "train":
-        assert out.returncode != 0 and "training is not ported yet" in out.stderr
-        assert out.stdout == ""
-        return
     assert out.returncode == 0, out.stderr
     lines = out.stdout.strip().splitlines()
     assert len(lines) == 1
     line = json.loads(lines[0])
+    if mode == "train":
+        assert BENCH_TRAIN_KEYS <= set(line)
+        assert line["device"] == "cpu" and line["train_mfu"] is None
+        assert line["train_batch"] == 4 and line["unit"] == "slices/s"
+        assert line["value"] == line["train_slices_per_sec_per_chip"] > 0
+        assert line["train_flops_per_step"] > 0 and np.isfinite(line["train_loss"])
+        return
     assert set(line) == BENCH_KEYS
     assert line["device"] == "cpu" and line["peak_tflops"] is None and line["mfu"] is None
     assert line["stream_volumes"] == 2 and len(line["repeat_times_s"]) == 1
