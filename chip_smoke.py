@@ -127,6 +127,38 @@ Phases, each printing at least one line; any failure exits non-zero:
              train step's backward guard patched out prints what TF32 would
              change.
 
+11. train, the rest — (a) the oblique view-stack precompute at full width
+             (4 labeled 128³ scans, 6 golden-spiral views): one
+             oblique-plane launch a scan, the image stacks bit-equal to the
+             plain version on the card, the label stacks and nonempty table
+             equal to the CPU's, ms of the precompute and of one launch
+             beside its bound, the ``--no-view-stacks`` nonempty table on
+             the card equal to the CPU's, its ms; (b) the full-width 6-view bf16 probunet step
+             at batch 8 (4 × 2) and 32 on the gather kernel (its first
+             microbatch's gather bit-equal to the plain version on the
+             6-view stacks; ms a step, slices/s, gather launches a step,
+             peak allocated); (c)
+             ``--stream`` on the 3 views at batch 32: every batch of
+             ``PrefetchPipeline`` + ``sample_rows`` bit-equal to the resident
+             gather's on the f32 and the bf16/uint8 wires, ms a step of both
+             paths; (d) ``--augment --elastic-alpha 4``: the card's batch
+             within 1e-5 of the CPU's with the same injected draws, masks
+             equal, ms a step with and without; (e) ``--remat`` at batch 32:
+             loss and gradients of one step bit-equal to the plain step's
+             (cuDNN's deterministic algorithms), peak allocated of both; (g)
+             ``tools/profile_train.py`` at batch 128 (device ms by group, idle
+             share); (f) the train CLI as subprocesses: 6 views, ``--augment``,
+             2 epochs with ``--rss-limit-mb 1`` (one re-exec, both epochs,
+             the checkpoints, the model evaluated on 6 views), and
+             ``--stream``; beside them f32 6-view train steps of probunet
+             8,16 at 32² on the card against the CPU: 8 seeded plans of one
+             step of a microbatch of 2, each held as in phase 10 (loss,
+             gradients and state within 1e-5) and each outside 1e-5 with
+             the backward guard patched out; and how many of 8 seeded plans
+             of phase 10's shape (7 microbatch passes) stay within 1e-5 on
+             the 6-view and the 3-view data (printed, not checked: a ReLU
+             input within rounding of 0 flips a pixel's gradient).
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--json PATH`` also writes
 all measurements to PATH.
@@ -1613,12 +1645,23 @@ def gather_train_cost(b, s):
 
 
 TRAIN_PARITY = ((1, 2, (0.05, 0.02)), (4, 8, (0.05,)))  # (acc_steps, batch, lr a step)
+ONE_STEP = ((1, 2, (0.05,)),)  # one step of one microbatch of 2
 
 
-def train_parity_runs(device, data, plan):
-    """The f32 probunet 8,16 train steps of ``plan`` on ``device`` from seed
-    5: per configuration (losses, pre-clip gradients of the first step as
-    one f32 vector, the state_dict after its steps)."""
+def parity_plans(index, shape, n, seed):
+    """n seeded plans of ``shape`` over the rows of ``index``: per
+    configuration, per step, (rows, the eps of each microbatch)."""
+    g = torch.Generator().manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    return [[[(torch.from_numpy(index[rng.choice(len(index), batch, replace=False)]),
+               [torch.randn((batch // acc, 6), generator=g) for _ in range(acc)])
+              for _ in lrs] for acc, batch, lrs in shape] for _ in range(n)]
+
+
+def train_parity_runs(device, data, plan, shape=TRAIN_PARITY):
+    """The f32 probunet 8,16 train steps of ``plan`` (of ``shape``) on
+    ``device`` from seed 5: per configuration (losses, pre-clip gradients
+    of the first step as one f32 vector, the state_dict after its steps)."""
     from pmpu_tpu_torch.data.sampler import sample_batch_vt
     from pmpu_tpu_torch.train import steps
     from pmpu_tpu_torch.train.tasks import make_task
@@ -1626,7 +1669,7 @@ def train_parity_runs(device, data, plan):
     vt_i, vt_l = (t.to(device) for t in data)
     out = []
     clip = torch.nn.utils.clip_grad_value_
-    for (acc, _, lrs), runs in zip(TRAIN_PARITY, plan):
+    for (acc, _, lrs), runs in zip(shape, plan):
         task = make_task("probunet", num_filters=(8, 16), device=device, seed=5, train=True)
         state = steps.create_train_state(task, seed=0)
         step = steps.make_train_step(task, acc_steps=acc, sampler=sample_batch_vt)
@@ -1876,6 +1919,359 @@ def phase_train(card):
     return out
 
 
+def grads_of_step(step, state, args):
+    """Run ``step(state, *args)``; return its loss and its pre-clip
+    gradients as one f32 vector (in parameter order)."""
+    seen = []
+    clip = torch.nn.utils.clip_grad_value_
+
+    def spy(params, value):
+        seen.append(torch.cat([p.grad.reshape(-1).float() for p in params
+                               if p.grad is not None]))
+        return clip(params, value)
+
+    torch.nn.utils.clip_grad_value_ = spy
+    try:
+        _, m = step(state, *args)
+    finally:
+        torch.nn.utils.clip_grad_value_ = clip
+    return float(m["loss"]), seen[0]
+
+
+def time_steps(step, state, batches, warmup=2):
+    """Host ms a step over ``batches`` (tuples of step arguments after the
+    state) after ``warmup`` of them, ended by a synchronize; the peak
+    allocated bytes of the timed steps; the losses."""
+    for args in batches[:warmup]:
+        step(state, *args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [step(state, *args)[1]["loss"] for args in batches[warmup:]]
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / (len(batches) - warmup)
+    return ms, torch.cuda.max_memory_allocated(), [float(x) for x in losses]
+
+
+def phase_train_rest(card):
+    """Phase 11: k-view oblique training, --stream, --augment, --remat, the
+    RSS re-exec and profile_train (see the module docstring)."""
+    from pmpu_tpu_torch import VolumeEvaluator
+    from pmpu_tpu_torch.config import Config
+    from pmpu_tpu_torch.data import nifti
+    from pmpu_tpu_torch.data.augment import AugmentConfig, augment_batch, draw_augment
+    from pmpu_tpu_torch.data.index_map import build_index_map, build_index_map_from_table
+    from pmpu_tpu_torch.data.pipeline import PrefetchPipeline
+    from pmpu_tpu_torch.data.sampler import (
+        fibonacci_views,
+        make_oblique_view_stacks,
+        oblique_label_planes,
+        oblique_nonempty_table,
+        sample_batch_vt,
+        sample_rows,
+        view_basis,
+    )
+    from pmpu_tpu_torch.data.volumes import VolumeStore, make_view_stacks
+    from pmpu_tpu_torch.ops.cuda.oblique_gather import oblique_planes, oblique_planes_reference
+    from pmpu_tpu_torch.ops.cuda.slice_gather import flat_plane_index, gather_normalize_planes
+    from pmpu_tpu_torch.tools import profile_train
+    from pmpu_tpu_torch.train import steps
+    from pmpu_tpu_torch.train.checkpoint import load_for_inference
+    from pmpu_tpu_torch.train.loop import acc_steps_for
+    from pmpu_tpu_torch.train.tasks import make_task
+
+    import contextlib
+
+    print("phase 11: training, the rest")
+    out = {}
+    # (a) the oblique view-stack precompute at full width: 4 scans of 128³, 6 views
+    s, v, n = 128, 6, 4
+    img, lbl = labeled_scans(n, s, seed=80)
+    bases_np = np.stack([view_basis(a) for a in fibonacci_views(v)])
+    bases = torch.from_numpy(bases_np).cuda()
+    make_oblique_view_stacks(img[:1], lbl[:1], bases, device="cuda")  # warm-up
+    torch.cuda.synchronize()
+    oblique_planes.launches = 0
+    t0 = time.perf_counter()
+    vt_i, vt_l, table = make_oblique_view_stacks(img, lbl, bases, device="cuda")
+    torch.cuda.synchronize()
+    pre_ms = 1e3 * (time.perf_counter() - t0)
+    pre_launches = oblique_planes.launches
+    require(pre_launches == n, f"view stacks: {pre_launches} oblique launches for {n} scans")
+    for i in range(n):
+        want = oblique_planes_reference(torch.from_numpy(img[i]).cuda(), bases)
+        require(bits_equal(vt_i[:, i].reshape(v * s, s, s), want),
+                f"view stacks: scan {i}'s image planes differ from the plain version")
+    t0 = time.perf_counter()
+    cpu_l = torch.stack([oblique_label_planes(torch.from_numpy(lbl[i]), bases_np)
+                         for i in range(n)], dim=1)
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    require(torch.equal(vt_l.cpu(), cpu_l), "view stacks: label planes differ from the CPU's")
+    cpu_table = (cpu_l.amax(dim=(3, 4)) > 0).permute(1, 0, 2).numpy()
+    require(np.array_equal(table, cpu_table), "view stacks: nonempty table differs from the CPU's")
+    # the --no-view-stacks table, computed where the uploaded labels lie
+    lbl_d = torch.from_numpy(lbl).cuda()
+    oblique_nonempty_table(lbl_d[:1], bases)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nv_table = oblique_nonempty_table(lbl_d, bases)
+    table_ms = 1e3 * (time.perf_counter() - t0)
+    require(np.array_equal(nv_table, cpu_table),
+            "--no-view-stacks: the nonempty table differs from the CPU's")
+    del lbl_d
+    vol0 = torch.from_numpy(img[0]).cuda()
+    k_ms = event_ms(lambda: oblique_planes(vol0, bases), 20)
+    flops, nbytes = oblique_cost(s, v)
+    k_bound = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+    print(f"  [{card}] oblique view stacks, {n} scans of 128³ x {v} views: {pre_ms:.1f} ms "
+          f"(uploads, label planes, nonempty table included), {pre_launches} oblique_planes "
+          f"launches (one a scan), image planes bit-equal to the plain version on the card, "
+          f"label planes and table equal to the CPU's; kernel {k_ms:.4f} ms/launch, bound "
+          f"{k_bound:.4f} ms, {100 * k_bound / k_ms:.1f} % of the bound; the --no-view-stacks "
+          f"nonempty table on the card {table_ms:.1f} ms (equal to the CPU's), the same label "
+          f"planes on the host {host_ms:.1f} ms")
+    out["view_stacks"] = {"ms": pre_ms, "launches": pre_launches, "scans": n, "kernel_ms": k_ms,
+                          "bound_ms": k_bound, "nonempty_planes": int(table.sum()),
+                          "table_ms": table_ms, "host_label_planes_ms": host_ms}
+
+    # (b) 6-view full-width bf16 training at batch 8 (4 x 2) and 32
+    index = build_index_map_from_table(table, filter=True)
+    rng = np.random.default_rng(81)
+
+    def rows(b):
+        return torch.from_numpy(index[rng.choice(len(index), b, replace=False)]).cuda()
+
+    task = make_task("probunet", dtype=torch.bfloat16, device="cuda", seed=0, train=True)
+    state = steps.create_train_state(task, seed=0)
+    full = {}
+    planes_i, planes_l = vt_i.view(-1, s, s), vt_l.view(-1, s, s)
+    for batch, acc, n_steps in ((8, acc_steps_for(8), 6), (32, 1, 6)):
+        step = steps.make_train_step(task, acc_steps=acc, sampler=sample_batch_vt)
+        batches = [(vt_i, vt_l, rows(batch), 1e-3) for _ in range(n_steps + 2)]
+        # the kernel on this path's stacks: the first microbatch of the first step
+        micro_rows = batches[0][2][:batch // acc]
+        check_gather(planes_i, flat_plane_index(micro_rows.long(), n, s), planes_l,
+                     f"6-view stacks ({v * n * s} planes), a microbatch of {batch // acc}")
+        step(state, *batches[0])
+        gather_normalize_planes.launches = 0
+        ms, peak, losses = time_steps(step, state, batches[1:], warmup=1)
+        launches = gather_normalize_planes.launches
+        require(launches == (n_steps + 1) * acc,
+                f"6-view train: {launches} gather launches in {n_steps + 1} steps of {acc}")
+        require(all(np.isfinite(losses)), f"6-view train: a loss is not finite: {losses}")
+        print(f"  [{card}] 6-view full-width bf16 step, batch {batch} ({acc} x {batch // acc}): "
+              f"{ms:.1f} ms/step, {1e3 * batch / ms:.1f} slices/s, gather launches "
+              f"{launches / (n_steps + 1):g} a step, peak allocated {peak / 2**30:.2f} GiB")
+        full[batch] = {"acc_steps": acc, "ms_per_step": ms, "slices_per_s": 1e3 * batch / ms,
+                       "gather_launches_per_step": launches / (n_steps + 1), "peak_bytes": peak}
+    out["oblique_steps"] = full
+    del vt_i, vt_l, planes_i, planes_l, step
+    torch.cuda.empty_cache()
+
+    # (c) --stream against the resident path, 3 views, batch 32
+    s_img, s_lbl = labeled_scans(2, s, seed=82)
+    store = VolumeStore.from_arrays(s_img, s_lbl)
+    r_i = torch.from_numpy(make_view_stacks(s_img)).cuda()
+    r_l = torch.from_numpy(make_view_stacks(s_lbl)).cuda()
+    s_index = build_index_map(s_lbl, filter=True)
+    sels = [s_index[rng.choice(len(s_index), 32, replace=False)] for _ in range(8)]
+    row_ids = torch.arange(32, device="cuda")[:, None].expand(32, 3)
+    wires = {}
+    for name, idt, mdt in (("f32", torch.float32, torch.int32),
+                           ("bf16/uint8", torch.bfloat16, torch.uint8)):
+        pipe = PrefetchPipeline(store, image_dtype=idt, mask_dtype=mdt, device="cuda")
+        for sel, (im, mk) in zip(sels, pipe.iterate(sels)):
+            require(im.dtype == idt and mk.dtype == mdt, f"stream {name}: wire dtypes")
+            got_i, got_l = sample_rows(im, mk, row_ids)
+            want_i, want_l = sample_batch_vt(r_i, r_l, torch.from_numpy(sel).cuda())
+            require(bits_equal(got_i, want_i.to(idt).float()) and torch.equal(got_l, want_l),
+                    f"stream {name}: a batch differs from the resident sampler's")
+        wires[name] = sum(pipe.pool.allocated.values())
+    step_r = steps.make_train_step(task, sampler=sample_batch_vt)
+    step_s = steps.make_train_step(task, sampler=sample_rows)
+    res_ms, _, _ = time_steps(step_r, state,
+                              [(r_i, r_l, torch.from_numpy(x).cuda(), 1e-3) for x in sels])
+    stream = PrefetchPipeline(store, image_dtype=torch.bfloat16, mask_dtype=torch.uint8,
+                              device="cuda").iterate(sels)
+    step_s(state, *next(stream), row_ids, 1e-3)  # warm-up: the producer starts
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for im, mk in stream:
+        step_s(state, im, mk, row_ids, 1e-3)
+    torch.cuda.synchronize()
+    str_ms = 1e3 * (time.perf_counter() - t0) / (len(sels) - 1)
+    print(f"  [{card}] --stream, 3 views, batch 32: batches bit-equal to the resident "
+          f"sampler's on the f32 and bf16/uint8 wires (pinned buffers made: {wires}); "
+          f"{str_ms:.1f} ms/step streamed on the bf16/uint8 wire ({len(sels) - 1} steps after "
+          f"one) against {res_ms:.1f} resident ({len(sels) - 2} after two)")
+    out["stream"] = {"ms_per_step": str_ms, "resident_ms_per_step": res_ms}
+
+    # (d) --augment --elastic-alpha 4: the card's batch against the CPU's,
+    # the draws injected; the step time with and without
+    aug = AugmentConfig(elastic_alpha=4.0)
+    b_i, b_l = sample_batch_vt(r_i, r_l, torch.from_numpy(sels[0]).cuda())
+    draws = draw_augment(b_i.shape, aug, torch.Generator().manual_seed(83))
+    g_i, g_l = augment_batch(b_i, b_l, None, aug, {k: t.cuda() for k, t in draws.items()})
+    c_i, c_l = augment_batch(b_i.cpu(), b_l.cpu(), None, aug, draws)
+    aug_err = (g_i.cpu() - c_i).abs().max().item()
+    require(aug_err <= 1e-5 and torch.equal(g_l.cpu(), c_l),
+            f"augment: the card's batch differs from the CPU's by {aug_err} (allowed 1e-5)")
+    step_a = steps.make_train_step(task, sampler=sample_batch_vt, augment=aug)
+    aug_ms, _, _ = time_steps(step_a, state,
+                              [(r_i, r_l, torch.from_numpy(x).cuda(), 1e-3) for x in sels])
+    print(f"  [{card}] --augment --elastic-alpha 4, batch 32: card vs CPU max |diff| "
+          f"{aug_err:.3g} (allowed 1e-5), masks equal; {aug_ms:.1f} ms/step against "
+          f"{res_ms:.1f} without")
+    out["augment"] = {"max_abs_err": aug_err, "ms_per_step": aug_ms, "plain_ms_per_step": res_ms}
+
+    # (e) --remat, batch 32: one step's gradients against the plain step's
+    # (cuDNN's deterministic algorithms, so that two runs can agree bit for
+    # bit), and the peak allocated memory of each
+    init = {k: t.clone() for k, t in task.net.state_dict().items()}
+    rrows = torch.from_numpy(sels[1]).cuda()
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    remat = {}
+    try:
+        for flag in (False, True):
+            task.net.load_state_dict(init)
+            task.net.zero_grad(set_to_none=True)
+            st = steps.create_train_state(task, seed=0)
+            step = steps.make_train_step(task, sampler=sample_batch_vt, remat=flag)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            loss, grad = grads_of_step(step, st, (r_i, r_l, rrows, 1e-3))
+            remat[flag] = (loss, grad, torch.cuda.max_memory_allocated())
+    finally:
+        torch.backends.cudnn.deterministic = det
+    (l0, g0, p0), (l1, g1, p1) = remat[False], remat[True]
+    g_diff = float((g1 - g0).norm() / g0.norm())
+    print(f"  [{card}] --remat, batch 32: loss {l1!r} vs {l0!r}, gradients "
+          f"{'bit-equal' if torch.equal(g0, g1) else f'rel L2 {g_diff:.3g}'}; peak allocated "
+          f"{p1 / 2**30:.2f} GiB with remat, {p0 / 2**30:.2f} GiB without")
+    require(l0 == l1 and torch.equal(g0, g1), f"remat: the step differs (gradients rel L2 {g_diff})")
+    out["remat"] = {"peak_bytes": p1, "plain_peak_bytes": p0, "grad_rel_l2": g_diff}
+    del task, state, st, step, step_r, step_s, step_a, r_i, r_l, init
+    torch.cuda.empty_cache()
+
+    # (g) profile_train, batch 128 in one microbatch
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        prof = profile_train.run(["--steps", "128:1", "--trace-dir", tmp.name])["128:1"]
+    finally:
+        tmp.cleanup()
+    print(f"  [{card}] profile_train, batch 128: wall {prof['wall_ms']:.1f} ms, traced "
+          f"{prof['traced_ms']:.1f}, host enqueue {min(prof['host_enqueue_ms']):.1f} ms, idle "
+          f"{prof['idle_share']:.3f}, groups (ms) "
+          f"{ {k: round(x, 2) for k, x in prof['groups_ms'].items()} }, "
+          f"{prof['unplaced_ops']} of {prof['device_ops']} device operations unplaced")
+    require(prof["device_ops"] > 0, "profile_train: the trace has no device operations")
+    out["profile_train"] = prof
+    torch.cuda.empty_cache()
+
+    # (f) the train CLI as subprocesses: 6 views, --augment, 2 epochs, with a
+    # 1 MB RSS limit (one re-exec), and --stream on the 3 views; meanwhile
+    # (b') f32 6-view steps at small depth, the card against the CPU
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        d = tmp.name
+        cimg, clbl = labeled_scans(3, 32, seed=84, block=(10, 22))
+        for i in range(3):
+            nifti.save(os.path.join(d, "DATA", "images", f"scan{i}.nii"), cimg[i])
+            nifti.save(os.path.join(d, "DATA", "labels", f"scan{i}.nii"),
+                       clbl[i].astype(np.float32))
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+        base = [sys.executable, "-m", "pmpu_tpu_torch.train", "-m", "probunet", "-d", "DATA",
+                "--bf16", "-b", "16"]
+        cmds = {"oblique": base + ["--num-views", "6", "--augment", "--elastic-alpha", "4",
+                                   "-e", "2", "--rss-limit-mb", "1", "--checkpoint-dir", "ck6"],
+                "stream": base + ["--stream", "-e", "1", "--checkpoint-dir", "cks"]}
+        t_cli = time.perf_counter()
+        procs = {k: subprocess.Popen(c, cwd=d, env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True) for k, c in cmds.items()}
+        try:
+            p_img, p_lbl = labeled_scans(2, 32, seed=85)
+            p_vi, p_vl, p_table = make_oblique_view_stacks(p_img, p_lbl, bases_np)
+            p_index = build_index_map_from_table(p_table, filter=True)
+            data6 = (p_vi, p_vl)
+            diffs, ctrl = [], []
+            for plan in parity_plans(p_index, ONE_STEP, 8, seed=86):
+                cpu = train_parity_runs("cpu", data6, plan, ONE_STEP)
+                diffs.append(train_parity_diff(
+                    train_parity_runs("cuda", data6, plan, ONE_STEP), cpu))
+                guard = steps.exact_f32
+                steps.exact_f32 = contextlib.nullcontext
+                try:
+                    ctrl.append(train_parity_diff(
+                        train_parity_runs("cuda", data6, plan, ONE_STEP), cpu))
+                finally:
+                    steps.exact_f32 = guard
+            worst = [max(d[i] for d in diffs) for i in range(3)]
+            ctrl_min = min(max(c) for c in ctrl)
+            # what phase 10's plan shape (2 steps at acc 1, 1 at acc 4: 7
+            # microbatch passes) gives on seeded plans of both data
+            q_img, q_lbl = labeled_scans(2, 32, seed=62)
+            data3 = (torch.from_numpy(make_view_stacks(q_img)),
+                     torch.from_numpy(make_view_stacks(q_lbl)))
+            within = {}
+            for name, data, idx in (("6-view", data6, p_index),
+                                    ("3-view", data3, build_index_map(q_lbl))):
+                within[name] = sum(
+                    max(train_parity_diff(train_parity_runs("cuda", data, plan),
+                                          train_parity_runs("cpu", data, plan))) <= 1e-5
+                    for plan in parity_plans(idx, TRAIN_PARITY, 8, seed=88))
+            print(f"  [{card}] f32 6-view train step, card vs CPU (probunet 8,16, 32², one "
+                  f"step of a microbatch of 2, 8 seeded plans): worst loss rel diff {worst[0]:.3g}, "
+                  f"gradients rel L2 {worst[1]:.3g}, state excess over 1e-5 + 1e-5·|cpu| "
+                  f"{worst[2]:.3g} (each allowed 1e-5); with the backward guard patched out "
+                  f"(TF32 backward convolutions) the smallest plan's largest {ctrl_min:.3g}")
+            print(f"  [{card}] phase 10's plan shape (7 microbatch passes) on 8 seeded plans, "
+                  f"card vs CPU within 1e-5: {within['6-view']} of 8 on 6 views, {within['3-view']} of "
+                  f"8 on 3 views (a ReLU input within rounding of 0 flips a pixel's gradient)")
+            require(max(worst) <= 1e-5, "6-view train parity outside its tolerance of 1e-5")
+            require(ctrl_min > 1e-5, "6-view train parity: the TF32 control passed the "
+                                     "tolerance, so the check cannot see that fault")
+            out["oblique_parity"] = {"loss_rel": worst[0], "grad_rel_l2": worst[1],
+                                     "state_excess": worst[2], "plans": len(diffs),
+                                     "tf32_min_of_max": ctrl_min,
+                                     "tf32": ctrl, "phase10_shape_within": within}
+            logs = {}
+            for k, proc in procs.items():
+                _, logs[k] = proc.communicate(timeout=600)
+                require(proc.returncode == 0, f"train CLI {k} exited {proc.returncode}:\n"
+                                              f"{logs[k][-4000:]}")
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        cli_s = time.perf_counter() - t_cli
+        written = sorted(os.listdir(os.path.join(d, "ck6")))
+        require(written == ["probunet_checkpoint0.pt", "probunet_checkpoint1.pt",
+                            "probunet_model.pt", "probunet_rss_resume.pt"],
+                f"train CLI, 6 views: wrote {written}")
+        execs = logs["oblique"].count("re-exec for bounded RSS")
+        require(execs == 1 and "epoch 2/2 done" in logs["oblique"],
+                f"train CLI, 6 views: {execs} re-execs:\n{logs['oblique'][-3000:]}")
+        require("probunet_model.pt" in os.listdir(os.path.join(d, "cks")),
+                "train CLI, --stream: no probunet_model.pt")
+        task, _ = load_for_inference(os.path.join(d, "ck6", "probunet_model.pt"), Config(),
+                                     device="cuda")
+        r = VolumeEvaluator(task, num_views=6, device="cuda").evaluate_volume(cimg[0], clbl[0])
+        require(bool(torch.isfinite(r["fused"]).all()) and r["argmax"].shape == (32, 32, 32),
+                "train CLI: the 6-view checkpoint's evaluation is not finite")
+        print(f"  train CLI (subprocesses, beside the parity check): 6 views --augment -e 2 "
+              f"--rss-limit-mb 1: one re-exec, {written}; --stream: exit 0; {cli_s:.1f} s of "
+              f"wall; the 6-view model evaluated on 6 views: Dice "
+              f"{np.round(r['dice'], 4).tolist()}")
+        out["cli_s"] = cli_s
+    finally:
+        tmp.cleanup()
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write all measurements to this file")
@@ -1935,6 +2331,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     summary["train"] = phase_train(card)
     clock.append(("train", time.perf_counter()))
+    summary["train_rest"] = phase_train_rest(card)
+    clock.append(("train_rest", time.perf_counter()))
     summary["phase_s"] = {name: b - a for (_, a), (name, b) in zip(clock, clock[1:])}
     summary["phase_s"]["build"] = build_s
     print(f"seconds by phase: { {k: round(v, 1) for k, v in summary['phase_s'].items()} }; "
@@ -1944,6 +2342,14 @@ def main() -> int:
     gather.update({f"{k}_train_b128": v for k, v in summary["train"]["gather_b128"].items()})
     gather["train_launches_per_step"] = {
         str(b): f["gather_launches_per_step"] for b, f in summary["train"]["full"].items()}
+    gather["train_6view_launches_per_step"] = {
+        str(b): f["gather_launches_per_step"]
+        for b, f in summary["train_rest"]["oblique_steps"].items()}
+    oblique = next(k for k in kernels if k["name"] == "oblique_planes")
+    rest = summary["train_rest"]["view_stacks"]
+    oblique["train_launches_per_precompute"] = rest["launches"]
+    oblique["train_scans_per_precompute"] = rest["scans"]
+    oblique["ms_train_precompute"] = rest["ms"]
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:

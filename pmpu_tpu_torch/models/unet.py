@@ -111,9 +111,12 @@ class BatchNorm2d(nn.Module):
     mean², 0)``; ``y = (x − mean)·(rsqrt(var + eps)·weight) + bias`` in f32,
     rounded once to the input's dtype; the running statistics become
     ``0.9·running + 0.1·batch`` with the **biased** variance (torch's own
-    train-mode BatchNorm would store the unbiased one)."""
+    train-mode BatchNorm would store the unbiased one), unless
+    ``update_running`` is False (the train step's ``--remat`` recompute of
+    a forward pass that already updated them)."""
 
     momentum = 0.9
+    update_running = True
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -132,9 +135,10 @@ class BatchNorm2d(nn.Module):
         x32 = x.float()
         mean = x32.mean(dim=(0, 2, 3))
         var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-        with torch.no_grad():
-            for buf, stat in ((self.running_mean, mean), (self.running_var, var)):
-                buf.copy_(self.momentum * buf + (1 - self.momentum) * stat)
+        if self.update_running:
+            with torch.no_grad():
+                for buf, stat in ((self.running_mean, mean), (self.running_var, var)):
+                    buf.copy_(self.momentum * buf + (1 - self.momentum) * stat)
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (x32 - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(x.dtype)

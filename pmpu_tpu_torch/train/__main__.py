@@ -8,6 +8,14 @@ DATA_DIR holds ``images/`` and ``labels/`` NIfTI pairs. Checkpoints go to
 ``{net}_model.pt`` at the end); Ctrl-C or SIGTERM writes ``INTERRUPTED.pth``
 in the working directory and exits 0. Runs on the card; ``--device cpu``
 runs the kernels' plain versions on the CPU.
+
+``--rss-limit-mb M``: an epoch that ends with the host RSS above M MB
+writes ``{net}_rss_resume.pt``, and the process re-executes itself (``python
+-m pmpu_tpu_torch.train``, the same flags) with ``-f`` on that checkpoint,
+the remaining epochs and ``--epoch-offset`` advanced, so the run ends in a
+fresh process with the epoch numbering of one run. SIGINT stays blocked
+across the ``execv`` (pending, not fatal, while the new interpreter
+imports) and the new process unblocks it first thing.
 """
 
 from __future__ import annotations
@@ -15,16 +23,19 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+import signal
 import sys
 
 from pmpu_tpu_torch.config import add_train_args, config_from_args
 from pmpu_tpu_torch.data.volumes import VolumeStore
 from pmpu_tpu_torch.device import resolve_device
-from pmpu_tpu_torch.train.loop import check_ported, train_net
+from pmpu_tpu_torch.train.loop import RssLimitExceeded, check_ported, train_net
 
 
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(levelname)s: %(message)s")
+    signal.pthread_sigmask(signal.SIG_UNBLOCK, {signal.SIGINT})  # blocked by a re-exec
+    argv = sys.argv[1:] if argv is None else list(argv)
     parser = argparse.ArgumentParser(
         description="Train the UNet on images and target masks",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
@@ -46,7 +57,43 @@ def main(argv=None) -> int:
         train_net(cfg, store, device=device)  # writes INTERRUPTED.pth itself
     except KeyboardInterrupt:
         return 0
+    except RssLimitExceeded as e:
+        resume = _resume_argv(argv, e.checkpoint_path, cfg.epochs - e.epochs_done,
+                              epoch_offset=cfg.epoch_offset + e.epochs_done)
+        cmd = [sys.executable, "-m", "pmpu_tpu_torch.train", *resume]
+        logging.warning("re-exec for bounded RSS: %s", " ".join(cmd))
+        sys.stdout.flush()
+        sys.stderr.flush()
+        signal.pthread_sigmask(signal.SIG_BLOCK, {signal.SIGINT})
+        os.execv(sys.executable, cmd)
     return 0
+
+
+def _resume_argv(argv: list, ckpt_path: str, remaining: int,
+                 epoch_offset: int | None = None) -> list:
+    """argv for the bounded-RSS re-exec (root ``train.py::_resume_argv``):
+    ``-f/--load`` pointed at the resume checkpoint, ``-e/--epochs`` set to
+    the remaining count and ``--epoch-offset`` advanced, each replaced in
+    place when present (``--flag value`` or ``--flag=value``), appended
+    otherwise."""
+    out = list(argv)
+
+    def _set(flags, value):
+        for i, a in enumerate(out):
+            if a in flags and i + 1 < len(out):
+                out[i + 1] = value
+                return
+            for fl in flags:
+                if a.startswith(fl + "="):
+                    out[i] = fl + "=" + value
+                    return
+        out.extend([flags[0], value])
+
+    _set(("-f", "--load"), ckpt_path)
+    _set(("-e", "--epochs"), str(remaining))
+    if epoch_offset is not None:
+        _set(("--epoch-offset",), str(epoch_offset))
+    return out
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Training loop (counterpart of ``pmpu_tpu/train/loop.py``: ``split_indices``
-:75, ``train_net`` :83, ``_model_config`` :403, the epoch loop :466) for
-the 3 standard views.
+:75, ``train_net`` :83, ``_model_config`` :403, the epoch loop :466) on one
+device.
 
 Per epoch: a train phase over the shuffled (scan, view, slice) rows and a
 validation phase with the validation loss and per-class Dice, TensorBoard
@@ -10,18 +10,31 @@ validation loss (probunet) or Dice (1 class), and a checkpoint every
 Ctrl-C write ``INTERRUPTED.pth`` (in the working directory) and re-raise
 ``KeyboardInterrupt``.
 
-Data: the volumes live on the device, as the default (3,N,S,S,S) view
-stacks (every batch one launch of the gather-normalize kernel; so is
-``--pallas-sampler``) or as the plain (N,S,S,S) stack
-(``--no-view-stacks``); the host sends only (scan, view, slice) rows.
-The numpy parts are the JAX package's: ``np.random.default_rng(cfg.seed)``
-gives the same train/val split and the same epoch order. The posterior
-draws come from one ``torch.Generator`` on the device seeded by
-``cfg.seed`` (JAX draws from its key: the draws differ, by design).
+Data (:92-181), one of:
+* the 3 standard views on the device as (3,N,S,S,S) view stacks (every
+  batch one launch of the gather-normalize kernel; so is
+  ``--pallas-sampler``), or as the plain (N,S,S,S) stack
+  (``--no-view-stacks``);
+* k oblique views (``--num-views k`` ≠ 3) as (k,N,S,S,S) view stacks
+  precomputed by the oblique-plane kernel (one launch a scan) and gathered
+  by the gather kernel, or sampled trilinearly every step from the plain
+  stack (``--no-view-stacks``);
+* ``--stream`` (3 views): batches gathered on the host and copied to the
+  device by ``data/pipeline.py::PrefetchPipeline``, on a bf16 image wire
+  under ``--bf16`` without ``--augment`` and a uint8 mask wire when every
+  label is in [0, 256).
+The host sends only (scan, view, slice) rows. The numpy parts are the JAX
+package's: ``np.random.default_rng(cfg.seed)`` gives the same train/val
+split and the same epoch order. The posterior and augmentation draws come
+from one ``torch.Generator`` on the device seeded by ``cfg.seed`` (JAX
+draws from its key: the draws differ, by design).
 
 Each step's loss is fetched after the next step is dispatched, so the
 host does not wait on the card between steps; the validation round
-dispatches all its steps before fetching any.
+dispatches all its steps before fetching any. With ``--rss-limit-mb`` an
+epoch that ends above that host RSS writes ``{net}_rss_resume.pt`` and
+raises :class:`RssLimitExceeded`, on which the train CLI re-executes itself
+for the remaining epochs.
 """
 
 from __future__ import annotations
@@ -37,8 +50,19 @@ import numpy as np
 import torch
 
 from pmpu_tpu_torch.config import Config
-from pmpu_tpu_torch.data.index_map import build_index_map
-from pmpu_tpu_torch.data.sampler import sample_batch, sample_batch_vt
+from pmpu_tpu_torch.data.augment import AugmentConfig
+from pmpu_tpu_torch.data.index_map import build_index_map, build_index_map_from_table
+from pmpu_tpu_torch.data.pipeline import PrefetchPipeline
+from pmpu_tpu_torch.data.sampler import (
+    fibonacci_views,
+    make_oblique_sampler,
+    make_oblique_view_stacks,
+    oblique_nonempty_table,
+    sample_batch,
+    sample_batch_vt,
+    sample_rows,
+    view_basis,
+)
 from pmpu_tpu_torch.data.volumes import VolumeStore, make_view_stacks
 from pmpu_tpu_torch.device import resolve_device
 from pmpu_tpu_torch.train import checkpoint as ckpt
@@ -53,12 +77,8 @@ log = logging.getLogger(__name__)
 
 # Config fields of training paths not ported yet, with their flags
 _UNPORTED = (
-    ("augment", "--augment"),
-    ("stream", "--stream"),
     ("sharded_volumes", "--sharded-volumes"),
-    ("remat", "--remat"),
     ("async_checkpoints", "--async-checkpoints"),
-    ("rss_limit_mb", "--rss-limit-mb"),
     ("nan_checks", "--nan-checks"),
 )
 
@@ -67,13 +87,39 @@ def check_ported(cfg: Config, device: torch.device):
     """Raise, naming every flag of ``cfg`` that asks for a training path the
     port does not have yet (ROADMAP.md, queue 1)."""
     bad = [flag for field, flag in _UNPORTED if getattr(cfg, field)]
-    if cfg.num_views != 3:
-        bad.append(f"--num-views {cfg.num_views} (oblique training)")
     if cfg.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
         bad.append("--data-parallel over more than one device")
     if bad:
         raise NotImplementedError("not ported to pmpu_tpu_torch's training yet: "
                                   + ", ".join(bad))
+
+
+class RssLimitExceeded(Exception):
+    """Raised at an epoch boundary when the host RSS is above
+    ``--rss-limit-mb``, after a resume checkpoint was written (JAX :45). It
+    carries what the train CLI needs to re-execute itself with ``-f
+    checkpoint_path`` and the remaining epochs."""
+
+    def __init__(self, checkpoint_path: str, epochs_done: int, rss_mb: float):
+        self.checkpoint_path = checkpoint_path
+        self.epochs_done = epochs_done
+        self.rss_mb = rss_mb
+        super().__init__(
+            f"host RSS {rss_mb:.0f} MB over limit after epoch {epochs_done}; "
+            f"resume checkpoint at {checkpoint_path}"
+        )
+
+
+def _rss_mb() -> float:
+    """Host resident set size in MB (-1 when /proc is unavailable)."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) / 1024.0
+    except OSError:
+        pass
+    return -1.0
 
 
 def split_indices(n: int, val_percent: float, rng: np.random.Generator):
@@ -96,14 +142,45 @@ def train_net(cfg: Config, store: VolumeStore, interrupt_flag=None, device=None)
     n_classes = task.n_classes
 
     rng = np.random.default_rng(cfg.seed)
-    index = build_index_map(store.labels, filter=cfg.slice_filter)
-    if cfg.view_stacks:
-        images_d = torch.from_numpy(make_view_stacks(store.images)).to(device)
-        labels_d = torch.from_numpy(make_view_stacks(store.labels)).to(device)
+    stream_pipe = None
+    if cfg.num_views != 3:
+        bases = np.stack([view_basis(a) for a in fibonacci_views(cfg.num_views)])
+        if cfg.view_stacks:
+            images_d, labels_d, table = make_oblique_view_stacks(store.images, store.labels,
+                                                                 bases, device=device)
+            sampler = sample_batch_vt
+            log.info("oblique view stacks: %d views x %d scans precomputed (%.2f GB)",
+                     cfg.num_views, len(store), 8 * images_d.numel() / 1e9)
+        else:
+            images_d, labels_d = _upload(store.images, device), _upload(store.labels, device)
+            table = oblique_nonempty_table(labels_d, bases)
+            sampler = make_oblique_sampler(bases)
+        index = build_index_map_from_table(table, filter=cfg.slice_filter)
+        if cfg.stream:
+            log.warning("--stream requires the 3 standard views; using the device-resident "
+                        "oblique path")
+    elif cfg.stream:
+        index = build_index_map(store.labels, filter=cfg.slice_filter)
+        images_d = labels_d = None
+        sampler = sample_rows
+        # bf16 images only under bf16 compute without augmentation (the
+        # first conv casts to bf16 either way; augmentation runs in f32
+        # before it); uint8 masks only for labels in [0, 256) (a negative
+        # label would wrap)
+        compact_img = cfg.bf16 and not cfg.augment
+        compact_mask = store.labels.min() >= 0 and store.labels.max() < 256
+        stream_pipe = PrefetchPipeline(
+            store, image_dtype=torch.bfloat16 if compact_img else torch.float32,
+            mask_dtype=torch.uint8 if compact_mask else torch.int32, device=device)
+        log.info("streaming data path: host gather + prefetched uploads")
+    elif cfg.view_stacks:
+        index = build_index_map(store.labels, filter=cfg.slice_filter)
+        images_d = _upload(make_view_stacks(store.images), device)
+        labels_d = _upload(make_view_stacks(store.labels), device)
         sampler = sample_batch_vt  # --pallas-sampler too: the same kernel
     else:
-        images_d = torch.from_numpy(np.ascontiguousarray(store.images)).to(device)
-        labels_d = torch.from_numpy(np.ascontiguousarray(store.labels)).to(device)
+        index = build_index_map(store.labels, filter=cfg.slice_filter)
+        images_d, labels_d = _upload(store.images, device), _upload(store.labels, device)
         sampler = sample_batch
     if cfg.train_views is not None:
         keep = np.isin(index[:, 1], np.asarray(cfg.train_views))
@@ -125,7 +202,9 @@ def train_net(cfg: Config, store: VolumeStore, interrupt_flag=None, device=None)
         if payload.get("plateau"):
             plateau = ReduceLROnPlateau.from_state_dict(payload["plateau"])
             log.info("restored plateau scheduler (lr=%g)", plateau.lr)
-    train_step = make_train_step(task, acc_steps=acc_steps, sampler=sampler)
+    aug = AugmentConfig(elastic_alpha=cfg.elastic_alpha) if cfg.augment else None
+    train_step = make_train_step(task, acc_steps=acc_steps, sampler=sampler, augment=aug,
+                                 remat=cfg.remat)
     eval_step = make_eval_step(task, sampler=sampler)
     writer = MetricWriter(
         logdir=cfg.logdir,
@@ -159,10 +238,13 @@ def train_net(cfg: Config, store: VolumeStore, interrupt_flag=None, device=None)
         with ctx:
             _epoch_loop(cfg, task, state, train_step, eval_step, plateau, writer, images_d,
                         labels_d, index, train_idx, val_idx, rng, per_step, history,
-                        interrupted, model_extra, device)
+                        interrupted, model_extra, device, stream_pipe)
     except KeyboardInterrupt:
         ckpt.save_checkpoint("INTERRUPTED.pth", state, plateau, extra=model_extra)
         log.info("Saved interrupt%s", " (SIGTERM preemption)" if sigterm_hit["v"] else "")
+        raise
+    except RssLimitExceeded:
+        writer.close()  # flush before the CLI re-executes the process
         raise
     finally:
         if prev_term is not None:
@@ -216,13 +298,22 @@ def _pbar(total, desc):
     return tqdm(total=total, desc=desc, unit="img", disable=not sys.stderr.isatty(), leave=False)
 
 
+def _upload(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
 def _rows(index, sel, device):
-    return torch.from_numpy(np.ascontiguousarray(index[sel])).to(device)
+    return _upload(index[sel], device)
+
+
+def _stream_rows(n, device) -> torch.Tensor:
+    """(n, 3) rows 0..n-1 for ``sample_rows``: row i of a streamed batch."""
+    return torch.arange(n, device=device)[:, None].expand(n, 3)
 
 
 def _epoch_loop(cfg, task, state, train_step, eval_step, plateau, writer, images_d, labels_d,
                 index, train_idx, val_idx, rng, per_step, history, interrupted, model_extra,
-                device):
+                device, stream_pipe=None):
     n_classes = task.n_classes
     timer = StepTimer(slices_per_step=per_step)
     autosave_t = time.monotonic()
@@ -243,12 +334,19 @@ def _epoch_loop(cfg, task, state, train_step, eval_step, plateau, writer, images
             pbar.update(per_step)
             pbar.set_postfix(loss=f"{loss:.4f}")
 
-        for i in range(n_steps):
+        sels = [train_idx[order[i * per_step:(i + 1) * per_step]] for i in range(n_steps)]
+        if stream_pipe is None:
+            batches = ((images_d, labels_d, _rows(index, sel, device)) for sel in sels)
+        else:
+            rows = _stream_rows(per_step, device)
+            batches = ((imgs, lbls, rows) for imgs, lbls in
+                       stream_pipe.iterate([index[sel] for sel in sels]))
+        for images, labels, triples in batches:
             if interrupted():
+                batches.close()  # stops a stream's producer
                 raise KeyboardInterrupt
-            triples = _rows(index, train_idx[order[i * per_step:(i + 1) * per_step]], device)
             timer.start()
-            state, metrics = train_step(state, images_d, labels_d, triples, plateau.lr)
+            state, metrics = train_step(state, images, labels, triples, plateau.lr)
             pending.append((global_step, metrics))
             while len(pending) > 1:
                 drain()
@@ -274,12 +372,17 @@ def _epoch_loop(cfg, task, state, train_step, eval_step, plateau, writer, images
         val_sels = [s for s in (val_idx[i * per_step:(i + 1) * per_step]
                                 for i in range(val_steps)) if len(s)]
         vbar = _pbar(len(val_sels) * per_step, "Validation round")
+        if stream_pipe is None:
+            val_batches = ((images_d, labels_d, _rows(index, sel, device)) for sel in val_sels)
+        else:
+            val_batches = ((imgs, lbls, _stream_rows(len(imgs), device)) for imgs, lbls in
+                           stream_pipe.iterate([index[sel] for sel in val_sels]))
         val_pending, first_images = [], None
-        for sel in val_sels:
+        for images, labels, triples in val_batches:
             if interrupted():
+                val_batches.close()
                 raise KeyboardInterrupt
-            vloss, dice, preds, img, msk = eval_step(state, images_d, labels_d,
-                                                     _rows(index, sel, device))
+            vloss, dice, preds, img, msk = eval_step(state, images, labels, triples)
             val_pending.append((vloss, dice))
             if first_images is None:  # one image triplet a validation round
                 first_images = (preds, img, msk, global_step)
@@ -326,3 +429,14 @@ def _epoch_loop(cfg, task, state, train_step, eval_step, plateau, writer, images
         )
         if interrupted():
             raise KeyboardInterrupt
+
+        rss = _rss_mb() if cfg.rss_limit_mb else 0.0
+        if cfg.rss_limit_mb and rss > cfg.rss_limit_mb and epoch + 1 < cfg.epochs:
+            # the epoch boundary is the resume point: the re-executed
+            # process restores state, momentum, generator and plateau from
+            # this checkpoint and runs the remaining epochs
+            path = os.path.join(cfg.checkpoint_dir, f"{task.name}_rss_resume.pt")
+            ckpt.save_checkpoint(path, state, plateau, extra=model_extra)
+            log.warning("rss %.0f MB exceeds --rss-limit-mb %.0f after epoch %d; resume "
+                        "checkpoint %s", rss, cfg.rss_limit_mb, epoch + 1, path)
+            raise RssLimitExceeded(path, epoch + 1, rss)

@@ -18,6 +18,16 @@ per-conv guards have exited; the JAX gradients of f32 convs are exact f32.
 A bf16 step has f32 convs too (the μ/log σ heads), and the flag does not
 touch its bf16 convs, so every step enters the guard.
 
+``augment`` (an ``AugmentConfig``, ``--augment``) augments each microbatch
+after the sampler, in f32, before the loss (:175). ``remat`` (``--remat``,
+the counterpart of ``jax.checkpoint(train_loss)`` :156) runs the loss under
+``torch.utils.checkpoint``: the forward keeps only its inputs and the
+backward recomputes it. The recompute must repeat the forward exactly and
+change nothing, so the posterior eps are drawn before the checkpointed call
+(``task.draw_eps``; ``preserve_rng_state`` saves the global generators, not
+the step's) and the BatchNorm running statistics are updated by the first
+forward only (``update_running`` off in the recompute).
+
 ``mask_inert_bn_biases`` (:79, always on) turns off the gradient of
 every conv bias whose output feeds a train-mode BatchNorm (found by
 structure: a ``Conv2d`` followed by a ``BatchNorm2d`` in one
@@ -27,11 +37,15 @@ zero analytically, and the biases keep their init values in both packages.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
+from pmpu_tpu_torch.data.augment import augment_batch
 from pmpu_tpu_torch.data.sampler import sample_batch
 from pmpu_tpu_torch.device import exact_f32
 from pmpu_tpu_torch.models.unet import BatchNorm2d
@@ -106,36 +120,78 @@ def backward(loss: torch.Tensor):
         loss.backward()
 
 
-def make_train_step(task, acc_steps: int = 1, sampler=sample_batch):
-    """step(state, images, labels, triples, lr, eps=None) → (state, metrics).
+@contextlib.contextmanager
+def running_stats_frozen(net: nn.Module):
+    """The BatchNorm modules of ``net`` leave their running statistics as
+    they are inside (the ``--remat`` recompute)."""
+    bns = [m for m in net.modules() if isinstance(m, BatchNorm2d)]
+    for m in bns:
+        m.update_running = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            del m.update_running  # back to the class's True
+
+
+def make_train_step(task, acc_steps: int = 1, sampler=sample_batch, augment=None,
+                    remat: bool = False):
+    """step(state, images, labels, triples, lr, eps=None, draws=None) →
+    (state, metrics).
 
     * images/labels: the device-resident (N,S,S,S) stacks for
-      ``sample_batch``, or (3,N,S,S,S) view stacks for ``sample_batch_vt``
-      (the gather-normalize kernel, one launch a microbatch)
+      ``sample_batch`` (or ``make_oblique_sampler``), (V,N,S,S,S) view
+      stacks for ``sample_batch_vt`` (the gather-normalize kernel, one
+      launch a microbatch), or a host-gathered (B,S,S,1) batch for
+      ``sample_rows`` (``--stream``)
     * triples: (acc_steps·micro, 3) int rows (scan, view, slice) on the device
     * eps: None (draws from ``state.generator``), or one posterior eps per
       microbatch, (acc_steps, micro, latent)
+    * draws: None (``augment`` draws from ``state.generator``), or one
+      ``draw_augment`` dict per microbatch
     * metrics: the microbatches' mean of each loss term, device scalars
+
+    Each microbatch is scoped for the profiler as ``sample``, ``augment``,
+    ``forward``, ``backward``; the update as ``optimizer``.
     """
-    def step(state: TrainState, images, labels, triples, lr, eps=None):
+    net = task.net
+
+    def loss_fn(img, msk, eps):
+        return task.train_loss(img, msk, None, eps)
+
+    def step(state: TrainState, images, labels, triples, lr, eps=None, draws=None):
         params = state.params
         micro = triples.shape[0] // acc_steps
         state.optimizer.zero_grad(set_to_none=True)
         auxes = []
         for i in range(acc_steps):
-            img, msk = sampler(images, labels, triples[i * micro:(i + 1) * micro])
-            loss, aux = task.train_loss(img, msk, state.generator,
-                                        None if eps is None else eps[i])
-            backward(loss)
+            with record_function("sample"):
+                img, msk = sampler(images, labels, triples[i * micro:(i + 1) * micro])
+            if augment is not None:
+                with record_function("augment"):
+                    img, msk = augment_batch(img, msk, state.generator, augment,
+                                             None if draws is None else draws[i])
+            e = task.draw_eps(state.generator, micro) if eps is None else eps[i]
+            with record_function("forward"):
+                if remat:
+                    loss, aux = checkpoint(
+                        loss_fn, img, msk, e, use_reentrant=False, preserve_rng_state=False,
+                        context_fn=lambda: (contextlib.nullcontext(),
+                                            running_stats_frozen(net)))
+                else:
+                    loss, aux = loss_fn(img, msk, e)
+            with record_function("backward"):
+                backward(loss)
             auxes.append(aux)
-        if acc_steps > 1:
-            with torch.no_grad():
-                for p in params:
-                    if p.grad is not None:
-                        p.grad.div_(acc_steps)
-        torch.nn.utils.clip_grad_value_(params, CLIP)
-        set_lr(state.optimizer, lr)
-        state.optimizer.step()
+        with record_function("optimizer"):
+            if acc_steps > 1:
+                with torch.no_grad():
+                    for p in params:
+                        if p.grad is not None:
+                            p.grad.div_(acc_steps)
+            torch.nn.utils.clip_grad_value_(params, CLIP)
+            set_lr(state.optimizer, lr)
+            state.optimizer.step()
         state.step += 1
         return state, {k: torch.stack([a[k] for a in auxes]).mean() for k in auxes[0]}
 

@@ -93,6 +93,10 @@ class UNetTask:
             dice = sum(per_class) / len(per_class)
         return dice if self.loss_type == "dice" else base + dice
 
+    def draw_eps(self, generator, n):
+        """None: the U-Net draws nothing."""
+        return None
+
     def train_loss(self, img, msk, generator=None, eps=None):
         """(loss, aux) of one batch in the net's current mode; ``generator``
         and ``eps`` are unused (the U-Net draws nothing)."""
@@ -140,6 +144,13 @@ class ProbUNetTask:
             ),
             device, seed, train,
         )
+
+    def draw_eps(self, generator, n):
+        """The posterior eps of ``train_loss`` on n slices, drawn from
+        ``generator`` before the forward pass, as ``train_loss`` would draw
+        them after it (the same numbers)."""
+        return torch.randn((n, self.net.prior.latent_dim), generator=generator,
+                           device=generator.device)
 
     def train_loss(self, img, msk, generator=None, eps=None):
         """−ELBO with z_q = posterior.sample: one forward of the three towers

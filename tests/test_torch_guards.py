@@ -44,7 +44,9 @@ def test_import_pulls_in_no_jax():
     assert {"pmpu_tpu_torch.eval", "pmpu_tpu_torch.data.native", "pmpu_tpu_torch.data.index_map",
             "pmpu_tpu_torch.train.steps", "pmpu_tpu_torch.train.schedule",
             "pmpu_tpu_torch.train.loop", "pmpu_tpu_torch.train.__main__",
-            "pmpu_tpu_torch.utils.tblog", "pmpu_tpu_torch.utils.colorize"} <= set(MODULES)
+            "pmpu_tpu_torch.utils.tblog", "pmpu_tpu_torch.utils.colorize",
+            "pmpu_tpu_torch.data.augment", "pmpu_tpu_torch.data.pipeline",
+            "pmpu_tpu_torch.tools.profile_train"} <= set(MODULES)
 
 
 def _imports(path):
@@ -56,6 +58,9 @@ def _imports(path):
 
 
 def test_source_scan_finds_no_jax_import():
+    """No port module, nor ``chip_smoke.py`` (its training phases 10 and 11
+    included) or ``bench_torch.py``, imports jax or the JAX package, at
+    any depth of a function."""
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
     for f in files:
         for name in _imports(f):
@@ -101,6 +106,14 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
         train_net(Config(), VolumeStore.from_arrays(np.zeros((1, 4, 4, 4)), np.zeros((1, 4, 4, 4))))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_task("unet", num_filters=(4, 8), train=True)
+    # the streaming pipeline and the train-step profiler: the same
+    from pmpu_tpu_torch.data.pipeline import PrefetchPipeline
+    from pmpu_tpu_torch.tools.profile_train import main as profile_train_main
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PrefetchPipeline(VolumeStore.from_arrays(np.zeros((1, 4, 4, 4)), np.zeros((1, 4, 4, 4))))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profile_train_main([])
     for mode in ("infer", "train"):
         out = subprocess.run([sys.executable, "bench_torch.py"], cwd=ROOT, capture_output=True,
                              text=True, timeout=300,
@@ -119,7 +132,7 @@ def test_kernel_modules_build_and_load_nothing_on_cpu():
         "subprocess.Popen = no_nvcc\n"
         "from pmpu_tpu_torch.ops.cuda import _build, fcomb_mean, oblique_gather, qconv, slice_gather\n"
         "from pmpu_tpu_torch import VolumeEvaluator\n"
-        "from pmpu_tpu_torch.data.sampler import sample_batch_vt\n"
+        "from pmpu_tpu_torch.data.sampler import make_oblique_view_stacks, sample_batch_vt\n"
         "from pmpu_tpu_torch.train.tasks import make_task\n"
         "task = make_task('probunet', num_filters=(4, 8), device='cpu')\n"
         "fcomb_mean.fcomb_mean_decode(torch.rand(2, 4, 4, 4), torch.rand(3, 2, 6),\n"
@@ -130,6 +143,8 @@ def test_kernel_modules_build_and_load_nothing_on_cpu():
         "                torch.tensor([[1, 2, 3]]))\n"
         "qconv.fused_qchain(torch.rand(1, 5, 5, 4), qconv.make_random_chain(0, [(4, 8)]))\n"
         "oblique_gather.oblique_planes(torch.rand(5, 5, 5), torch.eye(3)[None])\n"
+        "make_oblique_view_stacks(torch.rand(2, 5, 5, 5), torch.zeros(2, 5, 5, 5, dtype=torch.int32),\n"
+        "                         torch.eye(3)[None].repeat(2, 1, 1))\n"
         "VolumeEvaluator(task, quantize='int8', eval_batch=8, device='cpu')"
         ".evaluate_volume(torch.rand(8, 8, 8).numpy())\n"
         "VolumeEvaluator(task, num_views=6, eval_batch=16, device='cpu')"

@@ -44,14 +44,19 @@ def test_view_bases_bit_equal(k):
 @pytest.mark.parametrize("normal", NORMALS)
 def test_oblique_plane_matches_jax(normal, nearest):
     """On a [0,1) volume: within 3e-6 (f32 rounding of the coordinates);
-    with nearest=True the rounded coordinates pick the same voxels."""
+    with nearest=True (the port's ``nearest`` at the plane's coordinates)
+    the rounded coordinates pick the same voxels."""
     s = 13
     vol = RNG.random((s, s, s)).astype(np.float32)
     basis = jax_sampler.view_basis(normal)
     for off in (-7.25, -2.5, 0.0, 1.75, 6.0):
         want = np.asarray(jax_sampler.oblique_plane(jnp.asarray(vol), jnp.asarray(basis), off,
                                                     nearest=nearest))
-        got = sampler.oblique_plane(_t(vol), _t(basis), off, nearest=nearest).numpy()
+        if nearest:
+            coords = sampler.plane_coords(_t(basis)[None], torch.tensor([off]), s)[0]
+            got = sampler.nearest(_t(vol), coords).numpy()
+        else:
+            got = sampler.oblique_plane(_t(vol), _t(basis), off).numpy()
         assert got.shape == (s, s) and got.dtype == np.float32
         if nearest:
             np.testing.assert_array_equal(got, want)

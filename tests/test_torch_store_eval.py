@@ -65,7 +65,9 @@ def test_evaluate_store_matches_jax(tmp_path, name):
     ev = engine.VolumeEvaluator(port_task(name, NF, 3, variables=variables), mean_z=True,
                                 device="cpu")
     jvars = jax.tree_util.tree_map(jnp.asarray, variables)
-    jstore, store = JaxStore.from_dirs(imgs, lbls), VolumeStore.from_dirs(imgs, lbls)
+    # the JAX numpy reader: no in-place build of the JAX native library here
+    jstore = JaxStore.from_dirs(imgs, lbls, use_native=False)
+    store = VolumeStore.from_dirs(imgs, lbls)
     for source_geometry in (True, False):
         jev.source_geometry = ev.source_geometry = source_geometry
         out = tmp_path / f"geom{source_geometry}"
@@ -124,7 +126,8 @@ def test_batched_store_matches_jax_batched(tmp_path, name):
     ev = engine.VolumeEvaluator(port_task(name, NF, 3, variables=variables), mean_z=True,
                                 device="cpu")
     want = jev.evaluate_store_batched(jax.tree_util.tree_map(jnp.asarray, variables),
-                                      JaxStore.from_dirs(imgs, lbls), key=jax.random.key(0),
+                                      JaxStore.from_dirs(imgs, lbls, use_native=False),
+                                      key=jax.random.key(0),
                                       save_dir=str(tmp_path / "jseg"),
                                       uncertainty_dir=str(tmp_path / "jent"))
     got = ev.evaluate_store_batched(VolumeStore.from_dirs(imgs, lbls), save_dir=str(

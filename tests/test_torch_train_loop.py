@@ -198,11 +198,21 @@ def test_train_cli(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flags,named", [
-    (["--augment"], "--augment"), (["--stream"], "--stream"),
-    (["--num-views", "6"], "--num-views 6"), (["--sharded-volumes"], "--sharded-volumes"),
-    (["--remat"], "--remat"), (["--async-checkpoints"], "--async-checkpoints"),
-    (["--rss-limit-mb", "100"], "--rss-limit-mb"), (["--nan-checks"], "--nan-checks"),
+    (["--sharded-volumes"], "--sharded-volumes"),
+    (["--async-checkpoints"], "--async-checkpoints"), (["--nan-checks"], "--nan-checks"),
+    (["--nan-checks", "--sharded-volumes"], "--sharded-volumes, --nan-checks"),
 ])
 def test_train_cli_refuses_unported_flags(flags, named):
     with pytest.raises(NotImplementedError, match=named):
+        train_main(["-d", "no-such-dir", "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--augment", "--elastic-alpha", "4"], ["--stream"], ["--num-views", "6"],
+    ["--num-views", "6", "--no-view-stacks"], ["--remat"], ["--rss-limit-mb", "100"],
+])
+def test_train_cli_accepts_ported_flags(flags):
+    """Flags ported since the first training slice pass ``check_ported``:
+    the CLI goes on to read the (missing) data directory."""
+    with pytest.raises(FileNotFoundError):
         train_main(["-d", "no-such-dir", "--device", "cpu", *flags])

@@ -3,7 +3,13 @@
 gives byte-equal images, labels, ids, cube and geometries through the
 native loader and the numpy reader; the shape guard and the header
 fallback behave as in ``tests/test_native_io.py``; an out-of-core pool built
-by either package reopens in the other without a rebuild."""
+by either package reopens in the other without a rebuild.
+
+The JAX store is always read through the JAX package's numpy reader
+(``_jax_store``), which ``tests/test_native_io.py`` holds byte-equal to
+its native reader. The JAX native library is built in place by ``make`` at
+first use, and a test process that loads it while another process is
+still writing it pins it as unavailable for the rest of that process."""
 
 import os
 
@@ -34,6 +40,12 @@ def _tree(root, suffixes=(".nii", ".nii.gz", ".nii")):
     return root / "images", root / "labels"
 
 
+def _jax_store(imgs, lbls, **kw):
+    """The JAX package's store from its numpy reader (see the module
+    docstring)."""
+    return JaxStore.from_dirs(imgs, lbls, use_native=False, **kw)
+
+
 def _assert_same_store(got, want):
     assert got.images.dtype == want.images.dtype == np.float32
     assert got.labels.dtype == want.labels.dtype == np.int32
@@ -59,14 +71,13 @@ def test_native_builds_from_source():
 def test_from_dirs_matches_jax(tmp_path, use_native):
     imgs, lbls = _tree(tmp_path)
     got = VolumeStore.from_dirs(imgs, lbls, use_native=use_native)
-    _assert_same_store(got, JaxStore.from_dirs(imgs, lbls, use_native=use_native))
+    _assert_same_store(got, _jax_store(imgs, lbls))
     assert got.cube == 16 and got.images.shape == (3, 16, 16, 16)
     assert got.image_dims == (16, 16, 16) and got.slices_per_volume == 48
     # names and a forced cube, as the per-host loading passes them
     sub = VolumeStore.from_dirs(imgs, lbls, use_native=use_native, names=["v1.nii.gz"],
                                 cube=20)
-    _assert_same_store(sub, JaxStore.from_dirs(imgs, lbls, use_native=use_native,
-                                               names=["v1.nii.gz"], cube=20))
+    _assert_same_store(sub, _jax_store(imgs, lbls, names=["v1.nii.gz"], cube=20))
 
 
 def test_native_and_numpy_readers_agree(tmp_path):
@@ -99,7 +110,7 @@ def test_native_header_error_falls_back(tmp_path):
     store = VolumeStore.from_dirs(tmp_path / "images", tmp_path / "labels")
     assert store.images.shape == (1, 4, 4, 4)
     np.testing.assert_array_equal(store.images[0, :2, :3, :4], data)
-    _assert_same_store(store, JaxStore.from_dirs(tmp_path / "images", tmp_path / "labels"))
+    _assert_same_store(store, _jax_store(tmp_path / "images", tmp_path / "labels"))
     with pytest.raises(ValueError):
         VolumeStore.from_dirs(tmp_path / "images", tmp_path / "labels", use_native=True)
 
@@ -116,10 +127,11 @@ def test_mmap_pool_crosses_packages(tmp_path, builder):
     rebuilds it."""
     imgs, lbls = _tree(tmp_path)
     pool = str(tmp_path / "pool")
-    build, reopen = (JaxStore, VolumeStore) if builder == "jax" else (VolumeStore, JaxStore)
-    built = build.from_dirs(imgs, lbls, mmap_dir=pool)
+    port = VolumeStore.from_dirs
+    build, reopen = (_jax_store, port) if builder == "jax" else (port, _jax_store)
+    built = build(imgs, lbls, mmap_dir=pool)
     stamp = _pool_stamp(pool)
-    again = reopen.from_dirs(imgs, lbls, mmap_dir=pool)
+    again = reopen(imgs, lbls, mmap_dir=pool)
     assert _pool_stamp(pool) == stamp
     assert isinstance(again.images, np.memmap) and again.images.mode == "r"
     ram = VolumeStore.from_dirs(imgs, lbls)
@@ -153,7 +165,7 @@ def test_without_a_compiler_the_numpy_reader_serves(tmp_path, monkeypatch, caplo
             VolumeStore.from_dirs(imgs, lbls)
         assert not native.available()
         assert sum("native NIfTI loader unavailable" in r.message for r in caplog.records) == 1
-        _assert_same_store(store, JaxStore.from_dirs(imgs, lbls, use_native=False))
+        _assert_same_store(store, _jax_store(imgs, lbls))
         with pytest.raises(RuntimeError, match="native io requested but unavailable"):
             VolumeStore.from_dirs(imgs, lbls, use_native=True)
     finally:
