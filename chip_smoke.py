@@ -158,6 +158,36 @@ Phases, each printing at least one line; any failure exits non-zero:
              of phase 10's shape (7 microbatch passes) stay within 1e-5 on
              the 6-view and the 3-view data (printed, not checked: a ReLU
              input within rounding of 0 flips a pixel's gradient).
+12. serve   — the serving daemon on phase 9's full-width probunet (the
+             phase 5 weights written with ``torch.save``): (a) in-process
+             ``serve.main([... "--once"])`` on 8 seeded 128³ volumes, bf16,
+             as 8 ``.nii`` (twice) and as 6 ``.nii`` + 2 ``.nii.gz``; then a
+             watch daemon as a process of its own, its first two batches of 8
+             (with CUDA's lazy module loading and with it eager): every
+             segmentation bit-equal to in-process ``predict_volumes_pipelined``
+             with the daemon's first batch seed, the kernels' counts set to 0
+             just before and read just after each run (a volume: gather 1,
+             fcomb 3 on the tensor cores), the log's s/volume beside the
+             in-process stream's (and a fresh evaluator's), the seconds from
+             the first scan to the last export written, split into the loads
+             and the writer's drain; (b) the same on 2 volumes with ``--quantize int8
+             --calibration`` (the in-process engine's scale file) and with
+             ``--num-views 6``: bit-equal, counts equal to the in-process
+             engine's and each kernel of the path launched; (c) a watch-mode
+             daemon as a subprocess with ``--rss-limit-mb 1``: a corrupt file
+             quarantined, an oversize one rejected, a stalled upload
+             quarantined and healed, a re-exec after each batch serving again
+             on the card (outputs bit-equal), SIGINT rc 0; (d) beside it
+             ``python -m pmpu_tpu_torch.tools.soak_serve`` at full width (32
+             volumes of 128³, a fault every 8: its verdict and MB/volume
+             slope); (e) ``uncertainty_maps`` (16 draws) and ``sample_grid``
+             on one 128² slice at full width in f32, card against CPU within
+             1e-5 (the grid's logits: 1e-5 of their scale), with their
+             times; (f) the full-width bf16 train step at batch 8 (4 × 2)
+             with ``--nan-checks`` against one without: bit-equal under
+             cuDNN's deterministic algorithms, ms a step of each and of each
+             half of the checks alone (the hooks, anomaly mode). The kernels
+             line gives each kernel's ``serve_launches_per_volume`` by path.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--json PATH`` also writes
@@ -168,7 +198,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2272,6 +2304,489 @@ def phase_train_rest(card):
     return out
 
 
+SERVE_SEED = 11
+FULL_WIDTH = (64, 128, 256, 512, 1024)
+
+
+class LogRecords(logging.Handler):
+    """The root logger's records at INFO and above while attached (an
+    in-process ``serve.main``'s log lines)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+    def __enter__(self):
+        root = logging.getLogger()
+        self._level = root.level
+        root.addHandler(self)
+        root.setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc):
+        root = logging.getLogger()
+        root.removeHandler(self)
+        root.setLevel(self._level)
+
+    def starting(self, prefix):
+        return [r for r in self.records if r.msg.startswith(prefix)]
+
+
+SERVE_KERNELS = ("fcomb_mean_decode", "gather_normalize_planes", "fused_qchain_stripes",
+                 "fused_qchain_whole_image", "oblique_planes")
+
+
+def reset_kernel_counts():
+    from pmpu_tpu_torch.ops.cuda.oblique_gather import oblique_planes
+    from pmpu_tpu_torch.ops.cuda.qconv import fused_qchain
+    from pmpu_tpu_torch.ops.cuda.slice_gather import gather_normalize_planes
+
+    reset_fcomb_counts()
+    gather_normalize_planes.launches = 0
+    fused_qchain.launches = 0
+    fused_qchain.launches_by_form = dict.fromkeys(fused_qchain.launches_by_form, 0)
+    oblique_planes.launches = 0
+
+
+def kernel_counts() -> dict:
+    from pmpu_tpu_torch.ops.cuda.fcomb_mean import fcomb_mean_decode
+    from pmpu_tpu_torch.ops.cuda.oblique_gather import oblique_planes
+    from pmpu_tpu_torch.ops.cuda.qconv import fused_qchain
+    from pmpu_tpu_torch.ops.cuda.slice_gather import gather_normalize_planes
+
+    return {"fcomb_mean_decode": fcomb_mean_decode.launches,
+            "gather_normalize_planes": gather_normalize_planes.launches,
+            "fused_qchain_stripes": fused_qchain.launches_by_form["stripes"],
+            "fused_qchain_whole_image": fused_qchain.launches_by_form["whole_image"],
+            "oblique_planes": oblique_planes.launches}
+
+
+def serve_once(ckpt, watch, out, n_vol, extra=()):
+    """``serve.main([... "--once"])`` in this process on the full-width
+    bf16 probunet checkpoint; the kernels' counts are set to 0 just before
+    and read just after. Returns (kernel launches, the served records' (n,
+    seconds), and seconds: from the first scan to the last export written,
+    of start-up, from the first scan to the first batch's dispatch (header
+    preflight and loads), from the last batch's log line to the end (the
+    writer draining))."""
+    from pmpu_tpu_torch import serve
+
+    argv = ["-m", "probunet", "-f", ckpt, "--bf16", "--watch", watch, "--out", out,
+            "--cube", "128", "--once", "--seed", str(SERVE_SEED), "--device", "cuda", *extra]
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    with LogRecords() as logs:
+        t0 = time.time()
+        rc = serve.main(argv)
+        t_end = time.time()  # main returns once the writer has drained
+    counts = kernel_counts()
+    require(rc == 0, f"serve --once {' '.join(extra)} exited {rc}")
+    scans = logs.starting("serving ")
+    served = [(r.args[0], r.args[1]) for r in logs.starting("served ")]
+    require(scans and sum(n for n, _ in served) == n_vol,
+            f"serve --once {' '.join(extra)}: served {served}, not {n_vol} volumes")
+    require(not any(r.levelno >= logging.ERROR for r in logs.records),
+            f"serve --once: {[r.getMessage() for r in logs.records if r.levelno >= 40]}")
+    last = logs.starting("served ")
+    times = {"wall_s": t_end - scans[0].created, "startup_s": scans[0].created - t0,
+             "load_s": last[0].created - last[0].args[1] - scans[0].created,
+             "drain_s": t_end - last[-1].created}
+    return counts, served, times
+
+
+def serve_outputs_equal(out, names, want):
+    """Every served segmentation equals the in-process engine's argmax."""
+    from pmpu_tpu_torch.data import nifti
+
+    for n, w in zip(names, want):
+        got = nifti.load(os.path.join(out, n))
+        require(got.shape == w.shape and np.array_equal(got, w),
+                f"serve: {n} differs from the in-process engine "
+                f"({float(np.mean(got != w)) if got.shape == w.shape else got.shape})")
+
+
+class WatchDaemon:
+    """``python -m pmpu_tpu_torch.serve`` in watch mode, its output read by
+    a thread."""
+
+    def __init__(self, args, env=None):
+        import threading
+
+        self.proc = subprocess.Popen([sys.executable, "-m", "pmpu_tpu_torch.serve", *args],
+                                     cwd=ROOT, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True,
+                                     env={**os.environ, **(env or {})})
+        self.lines = []
+        self.reader = threading.Thread(
+            target=lambda: self.lines.extend(iter(self.proc.stdout.readline, "")), daemon=True)
+        self.reader.start()
+
+    def log(self) -> str:
+        return "".join(self.lines)
+
+    def wait_for(self, needle, count=1, timeout=300):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if self.log().count(needle) >= count:
+                return
+            require(self.proc.poll() is None,
+                    f"serve daemon exited {self.proc.returncode}:\n{self.log()[-4000:]}")
+            time.sleep(0.1)
+        raise AssertionError(f"serve daemon: no {needle!r} (x{count}) in "
+                             f"{timeout} s:\n{self.log()[-4000:]}")
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.reader.join(timeout=10)
+
+
+def fresh_process_batches(ckpt, src, d, want, want_b2, loading):
+    """A watch-mode daemon as a process of its own (``CUDA_MODULE_LOADING``
+    = ``loading``) given the 8 volumes of ``src`` as one batch, then again
+    under new names as a second: s/volume of each batch from its log lines,
+    both batches' outputs bit-equal to the in-process engine's (the second
+    with the seed ``derive_seed(seed, 8)``), and the seconds from the start
+    to the daemon's first scan."""
+    import shutil
+
+    names = sorted(os.listdir(src))
+    watch, stage = os.path.join(d, "watch"), os.path.join(d, "stage")
+    os.makedirs(watch)
+    os.makedirs(stage)
+
+    def drop(prefix):  # renamed in: whole files, one scan
+        for n in names:
+            shutil.copy(os.path.join(src, n), os.path.join(stage, prefix + n))
+        for n in names:
+            os.rename(os.path.join(stage, prefix + n), os.path.join(watch, prefix + n))
+
+    t0 = time.perf_counter()
+    dm = WatchDaemon(["-m", "probunet", "-f", ckpt, "--bf16", "--watch", watch, "--out",
+                      os.path.join(d, "out"), "--cube", "128", "--poll", "0.2",
+                      "--seed", str(SERVE_SEED)], env={"CUDA_MODULE_LOADING": loading})
+    try:
+        dm.wait_for("INFO: serving ")
+        startup_s = time.perf_counter() - t0
+        drop("a")
+        dm.wait_for(f"{len(names)} total)")
+        drop("b")
+        dm.wait_for(f"{2 * len(names)} total)")
+        dm.proc.send_signal(signal.SIGINT)
+        rc = dm.proc.wait(timeout=120)
+    finally:
+        dm.stop()
+    require(rc == 0, f"serve daemon ({loading}): SIGINT gave rc {rc}:\n{dm.log()[-3000:]}")
+    batches = [[], []]
+    for ln in dm.log().splitlines():
+        if "INFO: served " in ln:  # "served N volumes in Xs (... s/volume, T total)"
+            n, dt = int(ln.split()[2]), float(ln.split(" in ")[1].split("s")[0])
+            total = int(ln.rsplit(", ", 1)[1].split()[0])
+            batches[total > len(names)].append((n, dt))
+    for prefix, w in (("a", want), ("b", want_b2)):
+        serve_outputs_equal(os.path.join(d, "out"), [prefix + n for n in names], w)
+    return {"batch_s_per_volume": [sum(t for _, t in b) / sum(n for n, _ in b) for b in batches],
+            "batches": batches, "startup_s": startup_s}
+
+
+def phase_serve(card, state_dict):
+    """Phase 12: the serving daemon (see the module docstring)."""
+    from pmpu_tpu_torch import VolumeEvaluator, make_task
+    from pmpu_tpu_torch.data import nifti
+    from pmpu_tpu_torch.inference import uncertainty
+    from pmpu_tpu_torch.inference.engine import derive_seed
+    from pmpu_tpu_torch.train import steps
+    from pmpu_tpu_torch.data.index_map import build_index_map
+    from pmpu_tpu_torch.data.sampler import sample_batch_vt
+    from pmpu_tpu_torch.data.volumes import make_view_stacks
+    from pmpu_tpu_torch.utils.profiling import enable_nan_checks
+
+    print("phase 12: serve (python -m pmpu_tpu_torch.serve on phase 9's full-width probunet "
+          "written as a checkpoint; the soak harness; uncertainty maps; --nan-checks)")
+    out = {}
+    tmp = tempfile.TemporaryDirectory()
+    soak = None
+    try:
+        d = tmp.name
+        ckpt = os.path.join(d, "probunet.pt")
+        torch.save(state_dict, ckpt)
+        task = make_task("probunet", num_filters=FULL_WIDTH, n_classes=3, dtype=torch.bfloat16,
+                         seed=0)
+        task.net.load_state_dict(state_dict)
+        vols = [synthetic_volume(128, seed=60 + i)[0] for i in range(8)]
+        seed0 = derive_seed(SERVE_SEED, 0)  # the seed of a daemon's first batch
+
+        # (a) --once on 8 volumes: 8 .nii, then 6 .nii + 2 .nii.gz
+        ev = VolumeEvaluator(task, n_samples=5, eval_batch=0)  # the daemon's settings
+        ev.predict_volumes_pipelined(vols[:2], pipeline_depth=2)  # warm-up
+        stream_s = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = ev.predict_volumes_pipelined(vols, seed=seed0, pipeline_depth=2)
+            stream_s.append((time.perf_counter() - t0) / len(vols))
+        want_v1 = ev.predict_volumes_pipelined(vols[1:2], seed=seed0)[0]  # (c)'s re-exec
+        # a fresh model and evaluator in this process, as each daemon makes:
+        # its first stream against its second
+        fresh_task = make_task("probunet", num_filters=FULL_WIDTH, n_classes=3,
+                               dtype=torch.bfloat16, seed=1)
+        fresh_task.net.load_state_dict(state_dict)
+        fresh = VolumeEvaluator(fresh_task, n_samples=5, eval_batch=0)
+        fresh_s = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            require(all(np.array_equal(a, b) for a, b in zip(
+                fresh.predict_volumes_pipelined(vols, seed=seed0, pipeline_depth=2), want)),
+                "a fresh evaluator's stream differs")
+            fresh_s.append((time.perf_counter() - t0) / len(vols))
+        del fresh, fresh_task
+        runs = {}
+        gz = [".nii"] * 6 + [".nii.gz"] * 2
+        for kind, suffixes, src in (("8 .nii", [".nii"] * 8, "nii"),
+                                    ("6 .nii + 2 .nii.gz", gz, "gz"),
+                                    ("8 .nii again", [".nii"] * 8, "nii")):
+            watch, dst = os.path.join(d, f"in_{src}"), os.path.join(d, f"out_{len(runs)}")
+            names = [f"v{i}{sfx}" for i, sfx in enumerate(suffixes)]
+            if not os.path.isdir(watch):
+                for n, v in zip(names, vols):
+                    nifti.save(os.path.join(watch, n), v)
+            counts, served, times = serve_once(ckpt, watch, dst, len(vols))
+            serve_outputs_equal(dst, names, want)
+            per_vol = {k: c / len(vols) for k, c in counts.items()}
+            require(per_vol["fcomb_mean_decode"] == 3 and per_vol["gather_normalize_planes"] == 1,
+                    f"serve ({kind}): launches a volume {per_vol}")
+            require_fcomb_route(3 * len(vols), f"served {kind} batch's")
+            runs[kind] = {"launches": counts, "served": served,
+                          "served_s_per_volume": sum(s for _, s in served) / len(vols), **times}
+        # the daemon as a process of its own, as a user starts it, in watch
+        # mode: its first two batches of 8, with CUDA's lazy module loading
+        # (the default) and with CUDA_MODULE_LOADING=EAGER
+        want_b2 = ev.predict_volumes_pipelined(vols, seed=derive_seed(SERVE_SEED, len(vols)))
+        for loading in ("LAZY", "EAGER"):
+            runs[f"a process of its own, {loading}"] = fresh_process_batches(
+                ckpt, os.path.join(d, "in_nii"), os.path.join(d, f"proc_{loading}"), want,
+                want_b2, loading)
+        print(f"  served 8 volumes three times, each segmentation bit-equal to in-process "
+              f"predict_volumes_pipelined(seed=derive_seed({SERVE_SEED}, 0)); launches a "
+              f"volume: fcomb 3, gather 1")
+        for kind, r in runs.items():
+            if "batch_s_per_volume" in r:
+                print(f"  [{card}] serve ({kind}): its first two batches of 8 "
+                      f"{[round(x, 4) for x in r['batch_s_per_volume']]} s/volume (the log's "
+                      f"lines, bit-equal to the in-process engine), start-up "
+                      f"{r['startup_s']:.1f} s")
+                continue
+            print(f"  [{card}] serve --once ({kind}): served {r['served_s_per_volume']:.4f} "
+                  f"s/volume (the log's line); first scan to last write {r['wall_s']:.3f} s = "
+                  f"preflight and loads {r['load_s']:.3f} + served + writer drain "
+                  f"{r['drain_s']:.3f}; start-up {r['startup_s']:.2f} s")
+        print(f"  [{card}] in-process predict_volumes_pipelined, the same 8 volumes and "
+              f"settings: {[round(s, 4) for s in stream_s]} s/volume; a fresh model and "
+              f"evaluator, its first and second stream: {[round(s, 4) for s in fresh_s]}")
+        out["once"] = runs
+        out["in_process_stream_s_per_volume"] = stream_s
+        out["fresh_evaluator_stream_s_per_volume"] = fresh_s
+
+        # (b) int8 (a scale file written by the in-process engine) and 6 views
+        launches_pv = {"3 views": {k: c / len(vols)
+                                   for k, c in runs["8 .nii"]["launches"].items()}}
+        for label, extra, kw in (
+                ("int8", ["--quantize", "int8", "--calibration", os.path.join(d, "scales.json")],
+                 {"quantize": "int8", "calibration": os.path.join(d, "scales.json")}),
+                ("6 views", ["--num-views", "6"], {"num_views": 6})):
+            evk = VolumeEvaluator(task, n_samples=5, eval_batch=0, **kw)
+            evk.predict_volumes_pipelined(vols[:1])  # calibrates and writes the scale file (int8)
+            reset_kernel_counts()
+            wantk = evk.predict_volumes_pipelined(vols[:2], seed=seed0)
+            inproc = kernel_counts()
+            tag = label.replace(" ", "")
+            watch, dst = os.path.join(d, f"in_{tag}"), os.path.join(d, f"out_{tag}")
+            for i in range(2):
+                nifti.save(os.path.join(watch, f"v{i}.nii"), vols[i])
+            counts, served, times = serve_once(ckpt, watch, dst, 2, extra)
+            serve_outputs_equal(dst, ["v0.nii", "v1.nii"], wantk)
+            require(counts == inproc, f"serve {label}: launches {counts}, in-process {inproc}")
+            path_kernels = (("fused_qchain_stripes", "fused_qchain_whole_image")
+                            if label == "int8" else ("oblique_planes",))
+            require(all(counts[k] > 0 for k in path_kernels + SERVE_KERNELS[:2]),
+                    f"serve {label}: a kernel of the path was not launched: {counts}")
+            launches_pv[label] = {k: c / 2 for k, c in counts.items()}
+            out[label] = {"launches": counts, "served": served, **times}
+            print(f"  [{card}] serve --once {' '.join(extra[:2])} on 2 volumes: bit-equal to the "
+                  f"in-process engine; launches a volume "
+                  f"{ {k: v for k, v in launches_pv[label].items() if v} }; served "
+                  f"{sum(s for _, s in served) / 2:.4f} s/volume")
+            del evk
+        out["launches_per_volume"] = launches_pv
+
+        # (d) the soak harness at full width, in the background while (c) runs
+        soak_log = os.path.join(d, "soak_rss.log")
+        soak = subprocess.Popen(
+            [sys.executable, "-m", "pmpu_tpu_torch.tools.soak_serve", "--volumes", "32",
+             "--cube", "128", "--filters", ",".join(map(str, FULL_WIDTH)), "--fault-every", "8",
+             "--poll", "0.2", "--warmup", "8", "--timeout", "120", "--first-timeout", "300",
+             "--workdir", os.path.join(d, "soak"), "--rss-log", soak_log,
+             "--serve-arg=--bf16"],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        t_soak = time.perf_counter()
+
+        # (c) a watch-mode daemon on the card: corrupt and oversize files, a
+        # stalled upload, a re-exec after every batch (--rss-limit-mb 1), SIGINT
+        watch, dst = os.path.join(d, "watch"), os.path.join(d, "out_watch")
+        os.makedirs(watch)
+        t0 = time.perf_counter()
+        dm = WatchDaemon(["-m", "probunet", "-f", ckpt, "--bf16", "--watch", watch, "--out", dst,
+                          "--cube", "128", "--poll", "0.2", "--rss-limit-mb", "1",
+                          "--seed", str(SERVE_SEED)])
+        try:
+            dm.wait_for("INFO: serving ")
+            with open(os.path.join(watch, "bad.nii"), "wb") as f:
+                f.write(np.random.default_rng(0).bytes(2048))
+            nifti.save(os.path.join(watch, "big.nii"), np.zeros((136, 136, 136), np.float32))
+            nifti.save(os.path.join(watch, "v0.nii"), vols[0])
+            dm.wait_for("served 1 volumes in")
+            dm.wait_for("skipping 1 already-served")  # the re-executed daemon
+            dm.wait_for("quarantining bad.nii after 3 failed loads")
+            nifti.save(os.path.join(d, "v1_full.nii"), vols[1])
+            with open(os.path.join(d, "v1_full.nii"), "rb") as f:
+                blob = f.read()
+            with open(os.path.join(watch, "v1.nii"), "wb") as f:  # an upload that stalls
+                f.write(blob[:len(blob) // 2])
+                f.flush()
+                dm.wait_for("quarantining v1.nii after 3 failed loads")
+                f.write(blob[len(blob) // 2:])
+            dm.wait_for("v1.nii grew after quarantine; re-inspecting")
+            dm.wait_for("served 1 volumes in", count=2)
+            dm.wait_for("skipping 2 already-served")
+            dm.proc.send_signal(signal.SIGINT)
+            rc = dm.proc.wait(timeout=120)
+        finally:
+            dm.stop()
+        watch_s = time.perf_counter() - t0
+        log = dm.log()
+        require(rc == 0 and "interrupted" in log,
+                f"serve daemon: SIGINT gave rc {rc}:\n{log[-3000:]}")
+        require("big.nii shape (136, 136, 136) exceeds cube 128; rejected" in log,
+                f"serve daemon: no oversize reject:\n{log[-3000:]}")
+        reexecs = log.count("re-exec: ")
+        require(reexecs >= 2 and "-m pmpu_tpu_torch.serve -m probunet" in log,
+                f"serve daemon: {reexecs} re-execs")
+        require(log.count("(poll 0.2s, cuda)") == reexecs + 1,
+                "serve daemon: a (re-executed) daemon did not run on the card")
+        serve_outputs_equal(dst, ["v0.nii", "v1.nii"], [want[0], want_v1])
+        print(f"  [{card}] watch-mode daemon (subprocess): corrupt file quarantined, oversize "
+              f"rejected, stalled upload quarantined then healed, {reexecs} re-execs (each "
+              f"serving on the card again, outputs bit-equal to the in-process engine), SIGINT "
+              f"rc 0; {watch_s:.1f} s")
+        out["watch"] = {"reexecs": reexecs, "s": watch_s}
+
+        soak_out, soak_err = soak.communicate(timeout=900)
+        soak_s = time.perf_counter() - t_soak
+        require(soak.returncode == 0, f"soak exited {soak.returncode}:\n{soak_out[-2000:]}\n"
+                f"{soak_err[-3000:]}")
+        verdict = json.loads(soak_out.strip().splitlines()[-1])
+        require(verdict["ok"] and verdict["served"] == 32 and verdict["rejects_logged"] >= 1
+                and verdict["self_heals_logged"] >= 1, f"soak verdict {verdict}")
+        print(f"  [{card}] soak (32 full-width 128³ volumes, a fault every 8, beside the watch "
+              f"daemon): {json.dumps(verdict)}; {soak_s:.1f} s")
+        out["soak"] = verdict
+        with open(soak_log) as f:
+            out["soak"]["rss_log"] = f.read().split("\n")
+
+        # (e) uncertainty maps and the latent grid at full width in f32, card vs CPU
+        img = synthetic_volume(128, seed=6)[0][64]
+        img = img / img.max()
+        eps = torch.randn((16, 1, 6), generator=torch.Generator().manual_seed(5))
+        res, ms = {}, {}
+        for dev in ("cuda", "cpu"):
+            t32 = make_task("probunet", num_filters=FULL_WIDTH, n_classes=3, device=dev, seed=0)
+            uncertainty.uncertainty_maps(t32, img, 16, eps=eps)  # warm-up
+            times = {}
+            for name, fn in (("uncertainty_maps", lambda: uncertainty.uncertainty_maps(
+                                  t32, img, 16, eps=eps)),
+                             ("sample_grid", lambda: uncertainty.sample_grid(t32, img, 3, 40.0))):
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res[dev, name] = fn()  # ends with the copy to the host
+                times[name] = 1e3 * (time.perf_counter() - t0)
+            ms[dev] = times
+            del t32
+        unc_err = max(float(np.abs(a - b).max()) for a, b in zip(
+            res["cuda", "uncertainty_maps"], res["cpu", "uncertainty_maps"]))
+        g_card, g_cpu = res["cuda", "sample_grid"][0], res["cpu", "sample_grid"][0]
+        grid_err = float(np.abs(g_card - g_cpu).max())
+        grid_scale = float(np.abs(g_cpu).max())
+        print(f"  [{card}] uncertainty_maps (16 draws, 128², f32, full width): card vs CPU max "
+              f"|diff| {unc_err:.3g} (allowed 1e-5); sample_grid (9 latents): {grid_err:.3g} of "
+              f"logits up to {grid_scale:.3g} (allowed 1e-5 of max(1, that)); ms on the card "
+              f"{ {k: round(v, 2) for k, v in ms['cuda'].items()} }, on the CPU "
+              f"{ {k: round(v, 1) for k, v in ms['cpu'].items()} }")
+        require(unc_err <= 1e-5, f"uncertainty_maps: card vs CPU {unc_err}")
+        require(grid_err <= 1e-5 * max(1.0, grid_scale), f"sample_grid: card vs CPU {grid_err}")
+        out["uncertainty"] = {"maps_max_abs_err": unc_err, "grid_max_abs_err": grid_err,
+                              "grid_logit_scale": grid_scale, "ms": ms}
+    finally:
+        if soak is not None and soak.poll() is None:
+            soak.kill()
+            soak.wait()
+        tmp.cleanup()
+
+    # (f) one full-width bf16 train step (batch 8 = 4 x 2) with --nan-checks
+    # against one without: bit-equal under cuDNN's deterministic algorithms;
+    # ms a step of each with the default algorithms
+    img, lbl = labeled_scans(2, 128, seed=90)
+    vt_i = torch.from_numpy(make_view_stacks(img)).cuda()
+    vt_l = torch.from_numpy(make_view_stacks(lbl)).cuda()
+    index = build_index_map(lbl)
+    rng = np.random.default_rng(3)
+    batches = [(vt_i, vt_l, torch.from_numpy(index[rng.choice(len(index), 8, replace=False)])
+                .cuda(), 1e-3) for _ in range(3)]
+    task = make_task("probunet", num_filters=FULL_WIDTH, n_classes=3, dtype=torch.bfloat16,
+                     seed=0, train=True)
+    init = {k: t.clone() for k, t in task.net.state_dict().items()}
+    step = steps.make_train_step(task, acc_steps=4, sampler=sample_batch_vt)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for flag in (False, True):
+            task.net.load_state_dict(init)
+            task.net.zero_grad(set_to_none=True)
+            st = steps.create_train_state(task, seed=0)
+            enable_nan_checks(flag)
+            try:
+                runs[flag] = grads_of_step(step, st, batches[0])
+            finally:
+                enable_nan_checks(False)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    (l0, g0), (l1, g1) = runs[False], runs[True]
+    require(l0 == l1 and torch.equal(g0, g1), "--nan-checks changes the train step")
+    # ms a step: off, on, and each half of it alone (the forward hooks;
+    # anomaly mode on the backward), in turns
+    step_ms = {}
+    for mode in ("off", "on", "hooks only", "anomaly only", "off"):
+        st = steps.create_train_state(task, seed=0)
+        enable_nan_checks(mode in ("on", "hooks only"))
+        torch.autograd.set_detect_anomaly(mode in ("on", "anomaly only"))
+        try:
+            step_ms.setdefault(mode, []).append(time_steps(step, st, batches[:3], warmup=1)[0])
+        finally:
+            enable_nan_checks(False)
+    print(f"  [{card}] --nan-checks, full-width bf16 step at batch 8 (4 x 2): loss and "
+          f"gradients bit-equal with and without (deterministic cuDNN); ms a step "
+          f"{ {k: [round(x, 1) for x in v] for k, v in step_ms.items()} } (overhead "
+          f"{min(step_ms['on']) - min(step_ms['off']):.1f} ms)")
+    out["nan_checks"] = {"ms_per_step": step_ms}
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write all measurements to this file")
@@ -2327,12 +2842,15 @@ def main() -> int:
     clock.append(("stream", time.perf_counter()))
     summary["eval"] = phase_eval(card, task)
     clock.append(("eval", time.perf_counter()))
+    serve_sd = {k: t.detach().cpu().clone() for k, t in task.net.state_dict().items()}
     del task, vol, truth, r_bf16
     torch.cuda.empty_cache()
     summary["train"] = phase_train(card)
     clock.append(("train", time.perf_counter()))
     summary["train_rest"] = phase_train_rest(card)
     clock.append(("train_rest", time.perf_counter()))
+    summary["serve"] = phase_serve(card, serve_sd)
+    clock.append(("serve", time.perf_counter()))
     summary["phase_s"] = {name: b - a for (_, a), (name, b) in zip(clock, clock[1:])}
     summary["phase_s"]["build"] = build_s
     print(f"seconds by phase: { {k: round(v, 1) for k, v in summary['phase_s'].items()} }; "
@@ -2350,6 +2868,10 @@ def main() -> int:
     oblique["train_launches_per_precompute"] = rest["launches"]
     oblique["train_scans_per_precompute"] = rest["scans"]
     oblique["ms_train_precompute"] = rest["ms"]
+    served = summary["serve"]["launches_per_volume"]
+    for k in kernels:
+        count = "fused_qchain_stripes" if k["name"] == "fused_qchain" else k["name"]
+        k["serve_launches_per_volume"] = {path: c[count] for path, c in served.items()}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:

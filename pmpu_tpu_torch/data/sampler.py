@@ -23,6 +23,8 @@ label planes, ``make_oblique_sampler`` (``--no-view-stacks``) and
 ``oblique_nonempty_table`` are ports of the JAX package's XLA code, in
 plain PyTorch: no TPU kernel computes them. ``sample_rows`` (:95) reads
 the host-gathered batches of ``--stream`` (``data/pipeline.py``).
+``take_plane`` (:33) cuts one axis-aligned plane (the sampling
+visualizer's slice).
 
 Oblique planes (:226-310): ``view_basis`` and ``fibonacci_views`` are
 numpy copies of the JAX package's. ``plane_coords``, ``trilinear``,
@@ -46,6 +48,12 @@ import numpy as np
 import torch
 
 from pmpu_tpu_torch.ops.cuda.slice_gather import flat_plane_index, gather_normalize_planes
+
+
+def take_plane(volume: torch.Tensor, view: int, idx: int) -> torch.Tensor:
+    """Plane ``idx`` of a (S,S,S) volume along axis ``view`` (``take_plane``
+    :33): view 0 → volume[idx], 1 → volume[:, idx], 2 → volume[:, :, idx]."""
+    return volume.select(int(view), int(idx))
 
 
 def normalize_slice(img: torch.Tensor) -> torch.Tensor:

@@ -31,7 +31,10 @@ draws from its key: the draws differ, by design).
 
 Each step's loss is fetched after the next step is dispatched, so the
 host does not wait on the card between steps; the validation round
-dispatches all its steps before fetching any. With ``--rss-limit-mb`` an
+dispatches all its steps before fetching any. ``--nan-checks`` turns on
+``utils/profiling.py::enable_nan_checks`` for the epoch loop (JAX :85-86
+turns on ``jax_debug_nans``): a NaN raises ``FloatingPointError`` at the
+first module that outputs one. With ``--rss-limit-mb`` an
 epoch that ends above that host RSS writes ``{net}_rss_resume.pt`` and
 raises :class:`RssLimitExceeded`, on which the train CLI re-executes itself
 for the remaining epochs.
@@ -70,7 +73,7 @@ from pmpu_tpu_torch.train.schedule import ReduceLROnPlateau
 from pmpu_tpu_torch.train.steps import create_train_state, make_eval_step, make_train_step
 from pmpu_tpu_torch.train.tasks import make_task
 from pmpu_tpu_torch.utils.colorize import mask_to_image
-from pmpu_tpu_torch.utils.profiling import StepTimer, trace
+from pmpu_tpu_torch.utils.profiling import StepTimer, enable_nan_checks, rss_mb, trace
 from pmpu_tpu_torch.utils.tblog import MetricWriter
 
 log = logging.getLogger(__name__)
@@ -79,19 +82,22 @@ log = logging.getLogger(__name__)
 _UNPORTED = (
     ("sharded_volumes", "--sharded-volumes"),
     ("async_checkpoints", "--async-checkpoints"),
-    ("nan_checks", "--nan-checks"),
 )
 
 
 def check_ported(cfg: Config, device: torch.device):
     """Raise, naming every flag of ``cfg`` that asks for a training path the
-    port does not have yet (ROADMAP.md, queue 1)."""
+    port does not have: ``--sharded-volumes`` and ``--data-parallel`` over
+    more than one device (multi-device training, ROADMAP.md queue 1) and
+    ``--async-checkpoints`` (Orbax directories, which only orbax, a jax
+    package, reads and writes)."""
     bad = [flag for field, flag in _UNPORTED if getattr(cfg, field)]
     if cfg.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
         bad.append("--data-parallel over more than one device")
     if bad:
-        raise NotImplementedError("not ported to pmpu_tpu_torch's training yet: "
-                                  + ", ".join(bad))
+        raise NotImplementedError(
+            "not in pmpu_tpu_torch's training (multi-device training and Orbax "
+            "checkpoints are not ported): " + ", ".join(bad))
 
 
 class RssLimitExceeded(Exception):
@@ -108,18 +114,6 @@ class RssLimitExceeded(Exception):
             f"host RSS {rss_mb:.0f} MB over limit after epoch {epochs_done}; "
             f"resume checkpoint at {checkpoint_path}"
         )
-
-
-def _rss_mb() -> float:
-    """Host resident set size in MB (-1 when /proc is unavailable)."""
-    try:
-        with open("/proc/self/status") as f:
-            for line in f:
-                if line.startswith("VmRSS:"):
-                    return int(line.split()[1]) / 1024.0
-    except OSError:
-        pass
-    return -1.0
 
 
 def split_indices(n: int, val_percent: float, rng: np.random.Generator):
@@ -234,6 +228,8 @@ def train_net(cfg: Config, store: VolumeStore, interrupt_flag=None, device=None)
         return sigterm_hit["v"] or bool(user_flag and user_flag())
 
     ctx = trace(cfg.profile_dir) if cfg.profile_dir else contextlib.nullcontext()
+    if cfg.nan_checks:
+        enable_nan_checks()
     try:
         with ctx:
             _epoch_loop(cfg, task, state, train_step, eval_step, plateau, writer, images_d,
@@ -247,6 +243,8 @@ def train_net(cfg: Config, store: VolumeStore, interrupt_flag=None, device=None)
         writer.close()  # flush before the CLI re-executes the process
         raise
     finally:
+        if cfg.nan_checks:
+            enable_nan_checks(False)
         if prev_term is not None:
             signal.signal(signal.SIGTERM, prev_term)
 
@@ -430,7 +428,7 @@ def _epoch_loop(cfg, task, state, train_step, eval_step, plateau, writer, images
         if interrupted():
             raise KeyboardInterrupt
 
-        rss = _rss_mb() if cfg.rss_limit_mb else 0.0
+        rss = rss_mb() if cfg.rss_limit_mb else 0.0
         if cfg.rss_limit_mb and rss > cfg.rss_limit_mb and epoch + 1 < cfg.epochs:
             # the epoch boundary is the resume point: the re-executed
             # process restores state, momentum, generator and plateau from

@@ -46,7 +46,10 @@ def test_import_pulls_in_no_jax():
             "pmpu_tpu_torch.train.loop", "pmpu_tpu_torch.train.__main__",
             "pmpu_tpu_torch.utils.tblog", "pmpu_tpu_torch.utils.colorize",
             "pmpu_tpu_torch.data.augment", "pmpu_tpu_torch.data.pipeline",
-            "pmpu_tpu_torch.tools.profile_train"} <= set(MODULES)
+            "pmpu_tpu_torch.tools.profile_train", "pmpu_tpu_torch.serve",
+            "pmpu_tpu_torch.visualize_sampling", "pmpu_tpu_torch.inference.uncertainty",
+            "pmpu_tpu_torch.tools.soak_serve", "pmpu_tpu_torch.tools.ab_device_compute",
+            "pmpu_tpu_torch.utils.profiling"} <= set(MODULES)
 
 
 def _imports(path):
@@ -119,6 +122,26 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
                              text=True, timeout=300,
                              env={**os.environ, "BENCH_DEVICE": "cuda", "BENCH_MODE": mode})
         assert out.returncode != 0 and "no CUDA device" in out.stderr and out.stdout == ""
+
+
+def test_serving_tools_need_cuda_or_an_explicit_cpu(tmp_path):
+    """The daemon, the visualizer, the soak harness and the A/B tool run on
+    the card unless given ``--device cpu``: without CUDA they raise before
+    reading or starting anything (the soak harness starts no daemon)."""
+    from pmpu_tpu_torch.serve import main as serve_main
+    from pmpu_tpu_torch.tools.ab_device_compute import main as ab_main
+    from pmpu_tpu_torch.tools.soak_serve import main as soak_main
+    from pmpu_tpu_torch.visualize_sampling import main as viz_main
+
+    for main, argv in ((serve_main, ["--watch", "no-such-dir", "--out", "out", "--once"]),
+                       (viz_main, ["-d", "no-such-dir"]),
+                       (soak_main, ["--workdir", str(tmp_path / "soak")]),
+                       (ab_main, ["--cube", "8"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main([*argv, "--device", "cuda"])
+    assert not (tmp_path / "soak").exists()
 
 
 def test_kernel_modules_build_and_load_nothing_on_cpu():

@@ -199,8 +199,9 @@ def test_train_cli(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("flags,named", [
     (["--sharded-volumes"], "--sharded-volumes"),
-    (["--async-checkpoints"], "--async-checkpoints"), (["--nan-checks"], "--nan-checks"),
-    (["--nan-checks", "--sharded-volumes"], "--sharded-volumes, --nan-checks"),
+    (["--async-checkpoints"], "--async-checkpoints"),
+    (["--async-checkpoints", "--sharded-volumes"], "--sharded-volumes, --async-checkpoints"),
+    (["--nan-checks", "--sharded-volumes"], r"ported\): --sharded-volumes$"),
 ])
 def test_train_cli_refuses_unported_flags(flags, named):
     with pytest.raises(NotImplementedError, match=named):
@@ -210,6 +211,7 @@ def test_train_cli_refuses_unported_flags(flags, named):
 @pytest.mark.parametrize("flags", [
     ["--augment", "--elastic-alpha", "4"], ["--stream"], ["--num-views", "6"],
     ["--num-views", "6", "--no-view-stacks"], ["--remat"], ["--rss-limit-mb", "100"],
+    ["--nan-checks"],
 ])
 def test_train_cli_accepts_ported_flags(flags):
     """Flags ported since the first training slice pass ``check_ported``:

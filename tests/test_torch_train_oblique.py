@@ -259,7 +259,7 @@ def test_oblique_training_loop(layout, tmp_path, monkeypatch):
 
 def test_check_ported_accepts_the_rest(monkeypatch):
     cfg = Config(num_views=6, view_stacks=False, stream=True, augment=True, elastic_alpha=4.0,
-                 remat=True, rss_limit_mb=100.0, data_parallel=True)
+                 remat=True, rss_limit_mb=100.0, data_parallel=True, nan_checks=True)
     loop.check_ported(cfg, torch.device("cpu"))
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     loop.check_ported(cfg, torch.device("cuda"))
@@ -270,4 +270,4 @@ def test_check_ported_accepts_the_rest(monkeypatch):
                    data_parallel=True)
     with pytest.raises(NotImplementedError) as e:
         loop.check_ported(every, torch.device("cuda"))
-    assert str(e.value).count("--") == 4
+    assert str(e.value).count("--") == 3
