@@ -188,6 +188,42 @@ Phases, each printing at least one line; any failure exits non-zero:
              cuDNN's deterministic algorithms, ms a step of each and of each
              half of the checks alone (the hooks, anomaly mode). The kernels
              line gives each kernel's ``serve_launches_per_volume`` by path.
+13. train, multi-device — ``parallel/`` on ``torch.distributed`` at full
+             width (probunet 64..1024, latent 6, 4 seeded 128³ scans):
+             (a) a world of 1 under NCCL in this process: the
+             ``--data-parallel`` step (bf16, batch 32 = 4 × 8, view stacks)
+             and the ``--sharded-volumes`` step (bf16, batch 16, the plain
+             stack) each bit-equal to ``make_train_step`` on the same rows,
+             eps and state copy (cuDNN's deterministic algorithms); ms a step
+             of each beside the plain step (plain, world, world, plain); the
+             kernels' launches a step counted from 0 around the timed steps
+             (gather 4 and 0); (b) a world of 2 processes sharing the card
+             under gloo (asked for by name; NCCL refuses two ranks on one
+             device): the sharded step, 2 scans a rank, bit-equal to the two
+             shard steps averaged in this process; the f32 data-parallel
+             step at batch 8 against the one-process step (relative: loss,
+             gradients, update): probunet 8,16 at 32² in one microbatch
+             pass within 1e-5, full width in 1 and 4 passes within 3 times
+             the one-process step's own f32 floor (its BatchNorm moments
+             summed in float64); the ranks' states equal; each kernel's
+             launches a step on each rank; gloo's ms a step, labelled as
+             not a multi-card speed; then ``train_net`` with
+             ``--data-parallel --num-views 6`` in that world (the loop's
+             branch of more than one rank: the 6-view precompute on each
+             rank, validation split over the ranks): equal histories, rank
+             0's checkpoints, each kernel's launches on each rank; (c)
+             beside (b), ``python -m torch.distributed.run
+             --standalone --nproc-per-node 1 -m pmpu_tpu_torch.train`` with
+             ``--data-parallel --num-views 6`` and with
+             ``--sharded-volumes`` (1 epoch, batch 8, 4 scans labeled in a
+             central 11³ block), each checkpoint evaluated by
+             ``python -m pmpu_tpu_torch.eval``; (d) with 2 cards or more,
+             (b) under NCCL across two cards and the CLIs with
+             ``--nproc-per-node 2``, else one line saying why not. (c)'s
+             worlds of 1 run the one-device steps, as JAX does on one
+             device. The kernels line gives each kernel's
+             ``train_dp_launches_per_step`` per rank (a, b) and
+             ``train_dp_loop_world2_launches`` (b's ``train_net``).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--json PATH`` also writes
@@ -197,6 +233,8 @@ all measurements to PATH.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import contextlib
 import json
 import logging
 import os
@@ -2787,6 +2825,632 @@ def phase_serve(card, state_dict):
     return out
 
 
+DIST_SEED = 90
+DIST_KEYS = ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+
+
+def dist_data(cube, n=4):
+    """Phase 13's 4 seeded labeled scans, their view stacks and index."""
+    from pmpu_tpu_torch.data.index_map import build_index_map
+    from pmpu_tpu_torch.data.volumes import make_view_stacks
+
+    img, lbl = labeled_scans(n, cube, seed=DIST_SEED)
+    return img, lbl, make_view_stacks(img), make_view_stacks(lbl), build_index_map(lbl)
+
+
+def dist_plan(index, batch, acc, seed, latent=6):
+    """(rows (batch, 3) int64, eps (acc, batch // acc, latent) f32) on the CPU."""
+    rng = np.random.default_rng(seed)
+    g = torch.Generator().manual_seed(seed)
+    rows = torch.from_numpy(index[rng.choice(len(index), batch, replace=False)]).long()
+    return rows, torch.randn((acc, batch // acc, latent), generator=g)
+
+
+def shard_plan(index, n_vols, per_shard, seed, latent=6):
+    """``--sharded-volumes`` rows of 2 shards of ``n_vols // 2`` scans each
+    (``ShardedTripleBatcher``, scan ids local to the shard) and each
+    shard's eps: [(rows (per_shard, 3), eps (1, per_shard, latent))] by shard."""
+    from pmpu_tpu_torch.parallel import ShardedTripleBatcher
+
+    batch = next(ShardedTripleBatcher(index, n_vols, 2).epoch_batches(
+        per_shard, np.random.default_rng(seed)))
+    g = torch.Generator().manual_seed(seed)
+    return [(torch.from_numpy(batch[r * per_shard:(r + 1) * per_shard]).long(),
+             torch.randn((1, per_shard, latent), generator=g)) for r in range(2)]
+
+
+def state_vector(net) -> torch.Tensor:
+    return torch.cat([t.detach().float().reshape(-1).cpu() for t in net.state_dict().values()])
+
+
+def rel_l2(got, want) -> float:
+    return float((got.double() - want.double()).norm() / want.double().norm())
+
+
+SMALL_CUBE = 32
+# phase 13 (b): the full-width f32 data-parallel step of 2 ranks may be off
+# the one-process step by this many times the one-process step's own f32
+# floor (its control: BatchNorm moments summed in float64), in gradients and
+# in the update (on an H100 80GB HBM3 at 700 W the readings were 1.34 and
+# 0.97 at 1 pass, 1.79 and 0.23 at 4; PERF.md section 6)
+FULL_WIDTH_F32_FLOORS = 3.0
+
+
+def f32_plans(width, cube):
+    """Phase 13 (b)'s f32 data-parallel plans: (key, width, cube, acc_steps,
+    seed) of a batch of 8: at full width 1 and 4 microbatch passes, and 4
+    one-pass plans of probunet 8,16 at 32² (where f32 rounding moves no
+    ReLU or variance enough to pass 1e-5; at full width it does, see the
+    f64 control)."""
+    return ([("dp1", width, cube, 1, DIST_SEED + 3), ("dp4", width, cube, 4, DIST_SEED + 6)]
+            + [(f"small{k}", (8, 16), SMALL_CUBE, 1, DIST_SEED + 10 + k) for k in range(4)])
+
+
+@contextlib.contextmanager
+def f64_batchnorm_moments():
+    """Train-mode BatchNorm with its E[x] and E[x²] summed in float64, then
+    rounded to f32 (a control: the one-process step's own sensitivity to
+    the rounding of its moments)."""
+    from pmpu_tpu_torch.models.unet import BatchNorm2d
+
+    orig = BatchNorm2d.forward
+
+    def forward(self, x):
+        if not self.training:
+            return orig(self, x)
+        x32 = x.float()
+        x64 = x32.double()
+        mean = x64.mean(dim=(0, 2, 3)).float()
+        var = torch.clamp((x64 * x64).mean(dim=(0, 2, 3)).float() - mean * mean, min=0.0)
+        with torch.no_grad():
+            for buf, stat in ((self.running_mean, mean), (self.running_var, var)):
+                buf.copy_(self.momentum * buf + (1 - self.momentum) * stat)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x32 - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+    BatchNorm2d.forward = forward
+    try:
+        yield
+    finally:
+        BatchNorm2d.forward = orig
+
+
+def f32_agreement(got, want) -> dict:
+    """Relative loss, gradient L2 and update L2 (the state minus its init)
+    of a step against another from the same init."""
+    return {"loss_rel": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+            "grad_rel_l2": rel_l2(got["grads"], want["grads"]),
+            "update_rel_l2": rel_l2(got["state"] - want["init"], want["state"] - want["init"])}
+
+
+def worst_tensors(got, want, names, n=5) -> dict:
+    """The ``n`` tensors of two flat gradient vectors (``names``: (name,
+    numel) in order) furthest apart, as max |diff| / max |want|."""
+    errs = {}
+    for (name, k), g, w in zip(names, got.split([k for _, k in names]),
+                               want.split([k for _, k in names])):
+        errs[name] = float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+    return dict(sorted(errs.items(), key=lambda kv: -kv[1])[:n])
+
+
+class PairMean:
+    """``make_train_step``'s ``parallel`` for the reference of a host-local
+    step of 2 shards in one process: ``reduce`` records this shard's
+    gradients, BatchNorm buffers and metrics as ``flat`` (the layout of
+    ``parallel.sharding``'s all-reduce, without the flag), or with ``pair``
+    (the two shards' ``flat``) puts ``(pair[0] + pair[1]) / 2`` in place."""
+
+    def __init__(self, pair=None):
+        self.pair, self.flat = pair, None
+
+    def take(self, x):
+        return x
+
+    def share(self, micro):
+        return None
+
+    def context(self, net, share):
+        import contextlib
+
+        return contextlib.nullcontext()
+
+    def reduce(self, state, metrics, stop):
+        parts = [p.grad for p in state.params if p.grad is not None] + list(state.net.buffers())
+        keys = sorted(metrics)
+        flat = torch.cat([t.reshape(-1).float() for t in parts]
+                         + [torch.stack([metrics[k].float() for k in keys])])
+        if self.pair is None:
+            self.flat = flat.clone()
+            return metrics
+        flat = (self.pair[0] + self.pair[1]) / 2
+        with torch.no_grad():
+            for t, v in zip(parts, flat.split([t.numel() for t in parts] + [len(keys)])):
+                t.copy_(v.view_as(t))
+        return dict(zip(keys, flat[-len(keys):]))
+
+
+def dist_worker(out_dir, backend, cube, width, dev_type="cuda"):
+    """One rank of phase 13 (b) (gloo, both ranks on cuda:0) or (d) (NCCL,
+    rank r on cuda:r): the sharded bf16 step on this rank's 2 scans, and the
+    f32 data-parallel step over 1 and 4 microbatch passes, each checked step
+    from seed-0 weights and timed after, with each kernel's launches a timed
+    step; then ``train_net --data-parallel --num-views 6`` (1 epoch, batch 8
+    = 4 x 2, bf16) in this world, its history and kernel launches. Rank 0
+    saves states and gradients, every rank a digest of its states.
+    ``dev_type`` ``"cpu"``: the rehearsal without a card (gloo, not timed)."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from pmpu_tpu_torch.config import Config
+    from pmpu_tpu_torch.data.sampler import sample_batch_vt
+    from pmpu_tpu_torch.data.volumes import VolumeStore
+    from pmpu_tpu_torch.parallel import make_dp_train_step, make_hostlocal_dp_train_step, make_mesh
+    from pmpu_tpu_torch.train import steps
+    from pmpu_tpu_torch.train.loop import train_net
+    from pmpu_tpu_torch.train.tasks import make_task
+
+    rank, size = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    cuda = dev_type == "cuda"
+    dev = torch.device("cuda", rank if backend == "nccl" else 0) if cuda else torch.device("cpu")
+    if cuda:
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{os.environ['MASTER_PORT']}",
+                            rank=rank, world_size=size)
+    # this process's settings as main() sets them for the reference steps
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+    def timed(step, state, batches, out):
+        """``out["ms"]`` a step of ``batches`` (None on the CPU) and
+        ``out["launches_per_step"]`` of each kernel."""
+        reset_kernel_counts()
+        if cuda:
+            out["ms"] = time_steps(step, state, batches)[0]
+        else:
+            out["ms"] = None
+            for b in batches:
+                step(state, *b)
+        out["launches_per_step"] = {k: v / len(batches) for k, v in kernel_counts().items()}
+
+    try:
+        img, lbl, vt_i, vt_l, index = dist_data(cube)
+        out = {"backend": dist.get_backend()}
+        # the sharded step: this rank's 2 scans, bf16
+        task = make_task("probunet", num_filters=width, dtype=torch.bfloat16, device=dev,
+                         seed=0, train=True)
+        state = steps.create_train_state(task, seed=0)
+        rows, eps = shard_plan(index, 4, 8, DIST_SEED + 1)[rank]
+        mine = slice(2 * rank, 2 * rank + 2)
+        args = (torch.from_numpy(img[mine]).to(dev), torch.from_numpy(lbl[mine]).to(dev),
+                rows.to(dev), 1e-3, eps.to(dev))
+        step = make_hostlocal_dp_train_step(task, make_mesh())
+        _, m = step(state, *args)
+        out["sharded"] = {"loss": float(m["loss"]), "state": state_vector(task.net)}
+        timed(step, state, [args] * 4, out["sharded"])
+        del task, state, step
+        # the data-parallel step, f32: full width (1 and 4 microbatch passes) and
+        # probunet 8,16 at 32² (4 one-pass plans)
+        data = {cube: dist_data(cube)}
+        data.setdefault(SMALL_CUBE, dist_data(SMALL_CUBE))
+        for key, w, cb, acc, seed in f32_plans(width, cube):
+            task = make_task("probunet", num_filters=w, device=dev, seed=0, train=True)
+            state = steps.create_train_state(task, seed=0)
+            vt = (torch.from_numpy(data[cb][2]).to(dev), torch.from_numpy(data[cb][3]).to(dev))
+            rows, eps = dist_plan(data[cb][4], 8, acc, seed)
+            step = make_dp_train_step(task, make_mesh(), acc_steps=acc, sampler=sample_batch_vt)
+            loss, grads = grads_of_step(step, state, (*vt, rows.to(dev), 1e-3, eps.to(dev)))
+            out[key] = {"loss": loss, "grads": grads.cpu(), "state": state_vector(task.net)}
+            if not key.startswith("small"):
+                timed(step, state, [(*vt, rows.to(dev), 1e-3)] * 4, out[key])
+            del task, state, step
+        # the loop's data-parallel branch in this world: the 6-view stacks
+        # precomputed on each rank, the validation steps split over the ranks
+        cimg, clbl = labeled_scans(4, cube, seed=DIST_SEED + 7,
+                                   block=(cube // 2 - 5, cube // 2 + 6))
+        # 30 % validation: 2 steps at the card's size, one on each rank
+        cfg = Config(net="probunet", num_filters=tuple(width), epochs=1, batchsize=8, val=30.0,
+                     train_views=(0,), num_views=6, data_parallel=True, bf16=cuda,
+                     checkpoint_dir=os.path.join(out_dir, "ck"),
+                     logdir=os.path.join(out_dir, "tb"))
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        _, _, history = train_net(cfg, VolumeStore.from_arrays(cimg, clbl), device=dev)
+        sync = torch.cuda.synchronize if cuda else (lambda: None)
+        sync()
+        out["loop"] = {"history": {k: history[k] for k in ("train_loss", "val_loss", "val_dice")},
+                       "launches": kernel_counts(), "s": time.perf_counter() - t0}
+        stepped = [k for k in out if isinstance(out[k], dict) and "state" in out[k]]
+        for key in stepped:
+            out[key]["digest"] = hashlib.sha1(out[key]["state"].numpy().tobytes()).hexdigest()
+        if rank:
+            for key in stepped:
+                out[key].pop("state")
+                out[key].pop("grads", None)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_step_costs(task, step, state, args) -> dict:
+    """What the data-parallel step adds to the plain one, on the card: the
+    host ms of one ``all_reduce`` of a BatchNorm's moments (2 × 512 f32)
+    and of the autograd node that carries it, the BatchNorms a microbatch
+    passes, and the host time by op of one step (``torch.profiler``, CPU
+    activity, the 8 ops of most self time)."""
+    import torch.distributed as dist
+
+    from pmpu_tpu_torch.models.unet import BatchNorm2d
+    from pmpu_tpu_torch.parallel.sharding import BatchShare
+
+    x = torch.zeros(2, 512, device="cuda")
+    share = BatchShare(1, 1)
+    out = {"batchnorms": sum(isinstance(m, BatchNorm2d) for m in task.net.modules())}
+    for name, fn in (("all_reduce", lambda: dist.all_reduce(x)),
+                     ("moments_node", lambda: share.batch_moments(
+                         x.view(2, 512, 1, 1).requires_grad_(False), dim=(0, 2, 3)))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        host = (time.perf_counter() - t0) / 200
+        torch.cuda.synchronize()
+        out[f"{name}_host_ms"] = 1e3 * host
+        out[f"{name}_ms"] = 1e3 * (time.perf_counter() - t0) / 200
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        step(state, *args)
+        torch.cuda.synchronize()
+    top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]
+    out["host_ms_by_op"] = {e.key: round(e.self_cpu_time_total / 1e3, 2) for e in top}
+    out["host_calls_by_op"] = {e.key: e.count for e in top}
+    print(f"  (a) data-parallel step's added costs: {out['batchnorms']} BatchNorms a "
+          f"microbatch; one all_reduce of 2 × 512 f32 {out['all_reduce_host_ms']:.4f} ms of host "
+          f"({out['all_reduce_ms']:.4f} ms to the end), the moments node "
+          f"{out['moments_node_host_ms']:.4f} ms; host ms by op of one step (profiler): "
+          f"{out['host_ms_by_op']} (calls {out['host_calls_by_op']})")
+    return out
+
+
+def phase_train_dist(card, dev="cuda", cube=128, width=None):
+    """Phase 13: multi-device training (see the module docstring). ``dev``
+    ``"cpu"`` (gloo everywhere, a small ``cube`` and ``width``) rehearses
+    it without a card."""
+    import contextlib
+
+    import torch.distributed as dist
+
+    from pmpu_tpu_torch.data import nifti
+    from pmpu_tpu_torch.data.sampler import sample_batch, sample_batch_vt
+    from pmpu_tpu_torch.parallel import (
+        init_distributed,
+        make_dp_train_step,
+        make_hostlocal_dp_train_step,
+        make_mesh,
+        spawn_world,
+    )
+    from pmpu_tpu_torch.parallel.mesh import free_port
+    from pmpu_tpu_torch.train import steps
+    from pmpu_tpu_torch.train.tasks import make_task
+
+    width = FULL_WIDTH if width is None else width
+    cuda = dev == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    print("phase 13: multi-device training")
+    out = {}
+    img, lbl, vt_i, vt_l, index = dist_data(cube)
+    vt = (torch.from_numpy(vt_i).to(dev), torch.from_numpy(vt_l).to(dev))
+    plain = (torch.from_numpy(img).to(dev), torch.from_numpy(lbl).to(dev))
+
+    # (a) a world of 1 (NCCL on the card)
+    saved = {k: os.environ.get(k) for k in DIST_KEYS}
+    os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(free_port()))
+    try:
+        init_distributed(dev)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    backend = dist.get_backend()
+    require(backend == ("nccl" if cuda else "gloo"), f"phase 13: world of 1 on {backend}")
+    a = {}
+    try:
+        dtype = torch.bfloat16
+        tasks = [make_task("probunet", num_filters=width, dtype=dtype, device=dev, seed=0,
+                           train=True) for _ in range(2)]
+        mesh = make_mesh()
+        paths = {
+            "data_parallel": (4, 32, sample_batch_vt, vt,
+                              lambda t: make_dp_train_step(t, mesh, acc_steps=4,
+                                                           sampler=sample_batch_vt)),
+            "sharded_volumes": (1, 16, sample_batch, plain,
+                                lambda t: make_hostlocal_dp_train_step(t, mesh)),
+        }
+        det = torch.backends.cudnn.deterministic
+        for path, (acc, batch, sampler, data, make) in paths.items():
+            states = [steps.create_train_state(t, seed=0) for t in tasks]
+            tasks[1].net.load_state_dict(tasks[0].net.state_dict())  # the state copy
+            dist_step = make(tasks[0])
+            plain_step = steps.make_train_step(tasks[1], acc_steps=acc, sampler=sampler)
+            rows, eps = dist_plan(index, batch, acc, DIST_SEED + batch)
+            args = (*data, rows.to(dev), 1e-3, eps.to(dev))
+            torch.backends.cudnn.deterministic = True
+            try:
+                got = grads_of_step(dist_step, states[0], args)
+                want = grads_of_step(plain_step, states[1], args)
+            finally:
+                torch.backends.cudnn.deterministic = det
+            same = (got[0] == want[0] and torch.equal(got[1], want[1])
+                    and torch.equal(state_vector(tasks[0].net), state_vector(tasks[1].net)))
+            require(same, f"phase 13 (a) {path}: the world-of-1 step is not bit-equal to the "
+                          f"plain step (loss {got[0]} vs {want[0]}, gradients rel L2 "
+                          f"{rel_l2(got[1], want[1]):.3g})")
+            batches = [(*data, dist_plan(index, batch, acc, 1000 + i)[0].to(dev), 1e-3)
+                       for i in range(8)]
+            times = {}
+            for name, step, state in (("plain", plain_step, states[1]),
+                                      ("world1", dist_step, states[0]),
+                                      ("world1_again", dist_step, states[0]),
+                                      ("plain_again", plain_step, states[1])):
+                reset_kernel_counts()
+                if cuda:
+                    times[name] = time_steps(step, state, batches)[0]
+                else:
+                    for b in batches:
+                        step(state, *b)
+                counts = kernel_counts()
+                if name.startswith("world1"):
+                    a.setdefault(path, {})["launches_per_step"] = {
+                        k: v / len(batches) for k, v in counts.items()}
+            if path == "data_parallel" and cuda:
+                a[path].update(dp_step_costs(tasks[0], dist_step, states[0], batches[0]))
+            launches = a[path]["launches_per_step"]
+            want_gather = acc if cuda and sampler is sample_batch_vt else 0
+            require(launches["gather_normalize_planes"] == want_gather
+                    and sum(launches.values()) == want_gather,
+                    f"phase 13 (a) {path}: launches a step {launches}, want gather {want_gather}")
+            a[path].update(acc_steps=acc, batch=batch, ms=times, loss=got[0])
+            print(f"  [{card}] (a) {path} step in a world of 1 ({backend}), probunet "
+                  f"{','.join(map(str, width))} bf16 at {cube}², "
+                  f"batch {batch} ({acc} x {batch // acc}): bit-equal to the plain step "
+                  f"(loss {got[0]:.3f}, cuDNN deterministic); ms a step "
+                  f"{ {k: round(v, 2) for k, v in times.items()} }; launches a step "
+                  f"{ {k: v for k, v in launches.items() if v} or 'none' }")
+        del tasks, states, dist_step, plain_step
+    finally:
+        dist.destroy_process_group()
+    out["a"] = a
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (c) the train CLI under torchrun (a world of 1; of 2 on 2 cards), with (b)
+    # and (d) beside it
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        d = tmp.name
+        cimg, clbl = labeled_scans(4, cube, seed=DIST_SEED + 7,
+                                   block=(cube // 2 - 5, cube // 2 + 6))
+        for i in range(4):
+            nifti.save(os.path.join(d, "DATA", "images", f"scan{i}.nii"), cimg[i])
+            nifti.save(os.path.join(d, "DATA", "labels", f"scan{i}.nii"),
+                       clbl[i].astype(np.float32))
+        env = {k: v for k, v in os.environ.items() if k not in DIST_KEYS}
+        env["PYTHONPATH"] = os.pathsep.join([ROOT] + [p for p in [env.get("PYTHONPATH")] if p])
+        n_cards = torch.cuda.device_count() if cuda else 0
+        base = ["-m", "pmpu_tpu_torch.train", "-m", "probunet", "-d", "DATA", "--num-filters",
+                ",".join(map(str, width)), "-b", "8", "-e", "1", "--train-views", "0",
+                "--device", dev, *(["--bf16"] if cuda else [])]
+        clis = {f"{name} x{n}": (n, [*flags, "--checkpoint-dir", f"ck_{name}_{n}"])
+                for name, flags in (("data_parallel", ["--data-parallel", "--num-views", "6"]),
+                                    ("sharded_volumes", ["--sharded-volumes"]))
+                for n in ((1, 2) if n_cards >= 2 else (1,))}
+        t_cli = time.perf_counter()
+        procs = {name: subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+             str(n), *base, *flags], cwd=d, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for name, (n, flags) in clis.items()}
+        worlds = {"b": "gloo", **({"d": "nccl"} if n_cards >= 2 else {})}
+        pool = concurrent.futures.ThreadPoolExecutor(1)
+
+        def run_worlds():
+            res = {}
+            for part, wb in worlds.items():
+                wdir = os.path.join(d, f"world_{part}")
+                os.makedirs(wdir)
+                t0 = time.perf_counter()
+                spawn_world(dist_worker, 2, (wdir, wb, cube, width, dev))
+                res[part] = {"wall_s": time.perf_counter() - t0, "ranks": [
+                    torch.load(os.path.join(wdir, f"rank{r}.pt"), weights_only=False)
+                    for r in range(2)], "written": sorted(os.listdir(os.path.join(wdir, "ck")))}
+            return res
+
+        evals = {}
+        try:
+            pending = pool.submit(run_worlds)
+            if n_cards < 2:
+                print(f"  (d) not run: {n_cards} CUDA device(s) here; (b)'s checks under NCCL "
+                      "across two cards and the CLI with --nproc-per-node 2 need 2")
+            # the references in this process while (b) runs: the two shard steps
+            # averaged, and the f32 one-process data-parallel steps
+            task = make_task("probunet", num_filters=width, dtype=torch.bfloat16, device=dev,
+                             seed=0, train=True)
+            init_sd = {k: v.clone() for k, v in task.net.state_dict().items()}
+            shard_args = [(torch.from_numpy(img[2 * r:2 * r + 2]).to(dev),
+                           torch.from_numpy(lbl[2 * r:2 * r + 2]).to(dev), rows.to(dev), 1e-3,
+                           eps.to(dev))
+                          for r, (rows, eps) in enumerate(shard_plan(index, 4, 8, DIST_SEED + 1))]
+            pair = []
+            torch.backends.cudnn.deterministic = True
+            try:
+                # each shard's step from the seed-0 state records its buffer; then
+                # the seed-0 state takes their mean on shard 1's rows
+                for args, par in zip(shard_args + shard_args[1:],
+                                     [PairMean(), PairMean(), PairMean(pair)]):
+                    task.net.load_state_dict(init_sd)
+                    state = steps.create_train_state(task, seed=0)
+                    steps.make_train_step(task, parallel=par)(state, *args)
+                    if par.pair is None:
+                        pair.append(par.flat)
+                ref_sharded = state_vector(task.net)
+            finally:
+                torch.backends.cudnn.deterministic = det
+            del task, state, init_sd, pair
+            # the one-process f32 steps of the same plans (cuDNN's deterministic
+            # algorithms, as the ranks), and the control: the full-width step with
+            # its BatchNorm moments rounded from float64
+            f32 = {}
+            small = dist_data(SMALL_CUBE)
+            torch.backends.cudnn.deterministic = True
+            try:
+                for key, w, cb, acc, seed in f32_plans(width, cube) + [
+                        ("f64_moments", width, cube, 1, DIST_SEED + 3)]:
+                    task = make_task("probunet", num_filters=w, device=dev, seed=0, train=True)
+                    init = state_vector(task.net)
+                    state = steps.create_train_state(task, seed=0)
+                    d_vt = vt if cb == cube else tuple(torch.from_numpy(x).to(dev)
+                                                       for x in small[2:4])
+                    rows, eps = dist_plan(index if cb == cube else small[4], 8, acc, seed)
+                    with (f64_batchnorm_moments() if key == "f64_moments"
+                          else contextlib.nullcontext()):
+                        loss, grads = grads_of_step(
+                            steps.make_train_step(task, acc_steps=acc, sampler=sample_batch_vt),
+                            state, (*d_vt, rows.to(dev), 1e-3, eps.to(dev)))
+                    names = {p: n for n, p in task.net.named_parameters()}
+                    f32[key] = {"loss": loss, "grads": grads.cpu(), "state": state_vector(task.net),
+                                "init": init, "names": [(names[p], p.numel())
+                                                        for p in state.params
+                                                        if p.grad is not None]}
+                    del task, state
+            finally:
+                torch.backends.cudnn.deterministic = det
+            run_all(procs, timeout=600)
+            cli_s = time.perf_counter() - t_cli
+            for name, (n, flags) in clis.items():
+                ck = flags[-1]
+                written = sorted(os.listdir(os.path.join(d, ck)))
+                require(written == ["probunet_checkpoint0.pt", "probunet_model.pt"],
+                        f"(c) {name}: the CLI wrote {written}")
+                if n == 1:
+                    evals[name] = subprocess.Popen(
+                        [sys.executable, "-m", "pmpu_tpu_torch.eval", "-m", "probunet", "-d",
+                         "DATA", "-f", os.path.join(ck, "probunet_model.pt"), "--eval-samples",
+                         "2", "--device", dev, *(["--bf16"] if cuda else [])],
+                        cwd=d, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                        text=True)
+            b = pending.result(timeout=900)
+            for part, res in b.items():
+                r0, r1 = res.pop("ranks")
+                for key in ("sharded", "dp1", "dp4"):
+                    require(r0[key]["digest"] == r1[key]["digest"],
+                            f"phase 13 ({part}) {key}: the ranks' states differ")
+                require(torch.equal(r0["sharded"]["state"], ref_sharded),
+                        f"phase 13 ({part}): the sharded step is not bit-equal to the two "
+                        "shard steps averaged in one process (rel L2 "
+                        f"{rel_l2(r0['sharded']['state'], ref_sharded):.3g})")
+                # each rank's f32 step against the one-process step; the control
+                # against the one-process step too
+                pairs = {k: (r0[k], want) for k, want in f32.items() if k in r0}
+                pairs["f64_moments"] = (f32["f64_moments"], f32["dp1"])
+                agree = {k: f32_agreement(got, want) for k, (got, want) in pairs.items()}
+                worst = {k: worst_tensors(got["grads"], want["grads"], want["names"], 3)
+                         for k, (got, want) in pairs.items() if not k.startswith("small")}
+                small = {k: v for k, v in agree.items() if k.startswith("small")}
+                require(all(max(v.values()) <= 1e-5 for v in small.values()),
+                        f"phase 13 ({part}): an f32 data-parallel step of probunet 8,16 at "
+                        f"{SMALL_CUBE}² (1 pass) is off the one-process step by more than 1e-5: "
+                        f"{small}")
+                # full width: within a few times the f32 floor of the one-process
+                # step (its control with f64-summed BatchNorm moments)
+                floor = agree["f64_moments"]
+                full = {k: {m: agree[k][m] / floor[m] for m in ("grad_rel_l2", "update_rel_l2")}
+                        for k in ("dp1", "dp4")}
+                require(all(x <= FULL_WIDTH_F32_FLOORS for v in full.values() for x in v.values()),
+                        f"phase 13 ({part}): a full-width f32 data-parallel step is off the "
+                        f"one-process step by more than {FULL_WIDTH_F32_FLOORS} x the control "
+                        f"{floor}: 1 pass {agree['dp1']}, 4 passes {agree['dp4']}")
+                # each kernel's launches a timed step on each rank
+                launches = {k: [r[k]["launches_per_step"] for r in (r0, r1)]
+                            for k in ("sharded", "dp1", "dp4")}
+                for key, acc in (("sharded", 0), ("dp1", 1), ("dp4", 4)):
+                    want = {n: float(acc if cuda and n == "gather_normalize_planes" else 0)
+                            for n in launches[key][0]}
+                    require(launches[key] == [want, want],
+                            f"phase 13 ({part}) {key}: launches a step on each rank "
+                            f"{launches[key]}, want {want}")
+                ms = {k: [r[k]["ms"] for r in (r0, r1)] for k in ("sharded", "dp1", "dp4")}
+                # the loop's data-parallel branch in this world
+                loop = [r["loop"] for r in (r0, r1)]
+                hist = loop[0]["history"]
+                require(hist == loop[1]["history"] and len(hist["train_loss"]) == 1
+                        and np.isfinite([*hist["train_loss"], *hist["val_loss"]]).all(),
+                        f"phase 13 ({part}) train_net --data-parallel: histories "
+                        f"{[x['history'] for x in loop]}")
+                require(res["written"] == ["probunet_checkpoint0.pt", "probunet_model.pt"],
+                        f"phase 13 ({part}) train_net --data-parallel wrote {res['written']}")
+                loop_launches = [x["launches"] for x in loop]
+                require(all(c["oblique_planes"] == (4 if cuda else 0)
+                            and (c["gather_normalize_planes"] > 0) == cuda
+                            and sum(c.values()) == c["oblique_planes"]
+                            + c["gather_normalize_planes"] for c in loop_launches),
+                        f"phase 13 ({part}) train_net --data-parallel: launches on each rank "
+                        f"{loop_launches}, want oblique 4 (one a scan) and gather > 0")
+                res.update(agreement=agree, f32_floor_multiples=full, launches_per_step=launches,
+                           ms=ms, loop={"history": hist, "launches": loop_launches,
+                                        "s": [x["s"] for x in loop]})
+                label = ("gloo through the host, both ranks on cuda:0: not a multi-card speed"
+                         if part == "b" else "NCCL, 2 cards")
+                print(f"  [{card}] ({part}) a world of 2 ({r0['backend']}): the sharded bf16 "
+                      f"step (2 scans a rank, batch 16) bit-equal to the two shard steps "
+                      f"averaged in one process, the ranks' states equal; the f32 data-parallel "
+                      f"step at batch 8 against one process (relative loss, gradients L2, "
+                      f"update L2): probunet 8,16 at {SMALL_CUBE}², 4 one-pass plans, each "
+                      f"within 1e-5: {small}; full width: 1 pass {agree['dp1']}, 4 passes "
+                      f"{agree['dp4']}, beside the one-process full-width step against itself "
+                      f"with its BatchNorm moments rounded from float64 (the floor of f32 "
+                      f"there): {agree['f64_moments']}, multiples of that floor (checked <= "
+                      f"{FULL_WIDTH_F32_FLOORS}): {full}; the tensors furthest off (max |diff| "
+                      f"/ max |grad|): {worst}; gather launches a step on each rank (sharded, "
+                      f"1 pass, 4 passes) "
+                      f"{[[c['gather_normalize_planes'] for c in v] for v in launches.values()]}; "
+                      f"ms a step ({label}): {ms}; {res['wall_s']:.1f} s of wall")
+                print(f"  [{card}] ({part}) train_net --data-parallel --num-views 6 in this "
+                      f"world (1 epoch, batch 8 = 4 x 2, bf16): the ranks' histories equal "
+                      f"{hist}, rank 0 wrote {res['written']}, launches on each rank "
+                      f"(6-view precompute, train and its share of validation) {loop_launches}, "
+                      f"{[round(x['s'], 1) for x in loop]} s")
+            out["b"] = b
+            reports = {}
+            for name, proc in evals.items():
+                stdout, err = proc.communicate(timeout=600)
+                require(proc.returncode == 0,
+                        f"(c) eval of {name}: exited {proc.returncode}:\n{err[-4000:]}")
+                reports[name] = parse_report(stdout)
+                require(reports[name] and all(np.isfinite(np.concatenate(v)).all()
+                                              for v in reports[name].values()),
+                        f"(c) eval of {name}: no finite report:\n{stdout[-2000:]}")
+        finally:
+            pool.shutdown(wait=True)
+            for proc in [*procs.values(), *evals.values()]:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        avg = {k: [float(np.round(x, 4)) for x in r.get("avg volume", ([np.nan],))[0]]
+               for k, r in reports.items()}
+        print(f"  (c) the train CLI under torch.distributed.run --standalone "
+              f"({', '.join(clis)}; 1 epoch, batch 8, --data-parallel on 6 views): "
+              f"{cli_s:.1f} s beside (b); each checkpoint written by rank 0 alone, those of the "
+              f"worlds of 1 evaluated by the eval CLI (avg volume Dice): {avg}")
+        out["c"] = {"cli_s": cli_s, "avg_dice": avg}
+    finally:
+        tmp.cleanup()
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write all measurements to this file")
@@ -2851,6 +3515,9 @@ def main() -> int:
     clock.append(("train_rest", time.perf_counter()))
     summary["serve"] = phase_serve(card, serve_sd)
     clock.append(("serve", time.perf_counter()))
+    torch.cuda.empty_cache()
+    summary["train_dist"] = phase_train_dist(card)
+    clock.append(("train_dist", time.perf_counter()))
     summary["phase_s"] = {name: b - a for (_, a), (name, b) in zip(clock, clock[1:])}
     summary["phase_s"]["build"] = build_s
     print(f"seconds by phase: { {k: round(v, 1) for k, v in summary['phase_s'].items()} }; "
@@ -2869,9 +3536,17 @@ def main() -> int:
     oblique["train_scans_per_precompute"] = rest["scans"]
     oblique["ms_train_precompute"] = rest["ms"]
     served = summary["serve"]["launches_per_volume"]
+    dist_a = summary["train_dist"]["a"]
+    dist_b = summary["train_dist"]["b"]["b"]
     for k in kernels:
         count = "fused_qchain_stripes" if k["name"] == "fused_qchain" else k["name"]
         k["serve_launches_per_volume"] = {path: c[count] for path, c in served.items()}
+        # per rank: the world of 1 (a), and each rank of (b)'s world of 2
+        k["train_dp_launches_per_step"] = {
+            **{f"{path}_world1": a["launches_per_step"][count] for path, a in dist_a.items()},
+            **{f"{key}_world2": [c[count] for c in dist_b["launches_per_step"][key]]
+               for key in ("sharded", "dp1", "dp4")}}
+        k["train_dp_loop_world2_launches"] = [c[count] for c in dist_b["loop"]["launches"]]
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:

@@ -18,7 +18,9 @@ predict CLI (``python -m pmpu_tpu_torch.predict``); the host volume store
 (``data.volumes.VolumeStore``), store evaluation, sequential and batched,
 and the eval CLI (``python -m pmpu_tpu_torch.eval``); training of both
 models on the 3 standard views (``train.loop.train_net``, the train CLI
-``python -m pmpu_tpu_torch.train``).
+``python -m pmpu_tpu_torch.train``), and on several cards with
+``torch.distributed`` (``parallel``: ``--data-parallel``,
+``--sharded-volumes``).
 """
 
 from pmpu_tpu_torch.inference.engine import VolumeEvaluator

@@ -8,9 +8,10 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means ``"cuda"``. A CUDA request without a CUDA device
-    raises: the port never carries on quietly on the CPU; callers that want
-    the plain CPU path ask for ``"cpu"``."""
+    """``None`` means ``"cuda"``; ``"cuda:N"`` names card N. A CUDA request
+    without a CUDA device (or without card N) raises: the port never carries
+    on quietly on the CPU; callers that want the plain CPU path ask for
+    ``"cpu"``."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -19,7 +20,9 @@ def resolve_device(device=None) -> torch.device:
             "PyTorch path (the CLIs: --device cpu; bench_torch.py: BENCH_DEVICE=cpu)"
         )
     if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
+        raise ValueError(f"device must be 'cuda', 'cuda:N' or 'cpu', got {device!r}")
+    if dev.type == "cuda" and dev.index is not None and dev.index >= torch.cuda.device_count():
+        raise ValueError(f"{dev}: there are {torch.cuda.device_count()} CUDA devices")
     return dev
 
 

@@ -113,10 +113,19 @@ class BatchNorm2d(nn.Module):
     ``0.9·running + 0.1·batch`` with the **biased** variance (torch's own
     train-mode BatchNorm would store the unbiased one), unless
     ``update_running`` is False (the train step's ``--remat`` recompute of
-    a forward pass that already updated them)."""
+    a forward pass that already updated them).
+
+    ``sync`` (None: off; set by ``parallel.sharding.synced_batchnorm``), a
+    ``parallel.sharding.BatchShare``: this rank's share of a batch split
+    over the default process group. Train mode then
+    takes the statistics of the batch over all the ranks (the data-parallel step,
+    ``parallel.sharding.synced_batchnorm``): the local f32 E[x] and E[x²]
+    all-reduced as count-weighted sums, with gradients, and the same fast
+    variance; the running statistics update with the global values."""
 
     momentum = 0.9
     update_running = True
+    sync = None
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -133,8 +142,12 @@ class BatchNorm2d(nn.Module):
                 False, 0.0, self.eps,
             )
         x32 = x.float()
-        mean = x32.mean(dim=(0, 2, 3))
-        var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        if self.sync is None:
+            mean = x32.mean(dim=(0, 2, 3))
+            ex2 = (x32 * x32).mean(dim=(0, 2, 3))
+        else:
+            mean, ex2 = self.sync.batch_moments(x32, dim=(0, 2, 3))
+        var = torch.clamp(ex2 - mean * mean, min=0.0)
         if self.update_running:
             with torch.no_grad():
                 for buf, stat in ((self.running_mean, mean), (self.running_var, var)):

@@ -10,6 +10,12 @@
   with ``class_weights``), mean BCE on sigmoid probs for n_classes == 1.
 
 Image tensors are NHWC; integer masks are (N,H,W) or (N,H,W,1).
+
+``share`` (None: the batch is all here), a ``parallel.sharding.BatchShare``:
+the batch is split over the ranks of a data-parallel step, and each loss
+returns this rank's additive share of the global batch's loss (a mean over
+the batch is the local mean times the rank's fraction of the rows; ``Σw``
+and Dice's sums are all-reduced, with gradients).
 """
 
 from __future__ import annotations
@@ -22,16 +28,26 @@ from pmpu_tpu_torch.models.distributions import DiagGaussian, kl_divergence
 DICE_SMOOTH = 1e-6
 
 
-def dice_coeff(pred: torch.Tensor, target: torch.Tensor, smooth: float = DICE_SMOOTH):
-    """Global soft Dice coefficient over everything, in f32."""
+def dice_coeff(pred: torch.Tensor, target: torch.Tensor, smooth: float = DICE_SMOOTH,
+               share=None):
+    """Global soft Dice coefficient over everything, in f32 (with ``share``
+    over every rank's rows: the same value on each)."""
     p = pred.reshape(-1).float()
     t = target.reshape(-1).float()
     inter = torch.sum(p * t)
-    return (2.0 * inter + smooth) / (torch.sum(p) + torch.sum(t) + smooth)
+    if share is None:
+        return (2.0 * inter + smooth) / (torch.sum(p) + torch.sum(t) + smooth)
+    inter, sp, st = share.total(torch.stack([inter, torch.sum(p), torch.sum(t)])).unbind()
+    return (2.0 * inter + smooth) / (sp + st + smooth)
 
 
-def soft_dice_loss(pred, target, smooth: float = DICE_SMOOTH):
-    return 1.0 - dice_coeff(pred, target, smooth)
+def soft_dice_loss(pred, target, smooth: float = DICE_SMOOTH, share=None):
+    loss = 1.0 - dice_coeff(pred, target, smooth, share)
+    return loss if share is None else share.whole(loss)
+
+
+def _mean(x: torch.Tensor, share) -> torch.Tensor:
+    return torch.mean(x) if share is None else share.mean(x)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, class_weights=None) -> torch.Tensor:
@@ -64,7 +80,7 @@ def _squeeze_mask(masks):
 
 
 def unet_loss(preds: torch.Tensor, masks: torch.Tensor, n_classes: int,
-              class_weights=None) -> torch.Tensor:
+              class_weights=None, share=None) -> torch.Tensor:
     """The deterministic trainer's loss: ``preds`` are logits for
     n_classes > 1, sigmoid probs for n_classes == 1."""
     masks = _squeeze_mask(masks)
@@ -77,13 +93,15 @@ def unet_loss(preds: torch.Tensor, masks: torch.Tensor, n_classes: int,
             k = len(w_tab)
             idx = masks.long()
             w = w_tab[torch.where(idx < 0, idx + k, idx).clamp(0, k - 1)]
-            return torch.sum(ce) / torch.sum(w)
-        return torch.mean(ce)
-    return torch.mean(bce(preds[..., 0], masks.to(preds.dtype)))
+            w_sum = torch.sum(w) if share is None else share.total(torch.sum(w))
+            return torch.sum(ce) / w_sum
+        return _mean(ce, share)
+    return _mean(bce(preds[..., 0], masks.to(preds.dtype)), share)
 
 
 def elbo_loss(logits: torch.Tensor, masks: torch.Tensor, posterior: DiagGaussian,
-              prior: DiagGaussian, beta: float, n_classes: int, class_weights=None):
+              prior: DiagGaussian, beta: float, n_classes: int, class_weights=None,
+              share=None):
     """−ELBO = Σ CE(reconstruction, mask) + β · mean KL(q‖p) →
     (loss, {"reconstruction_loss", "kl"})."""
     masks = _squeeze_mask(masks)
@@ -91,6 +109,6 @@ def elbo_loss(logits: torch.Tensor, masks: torch.Tensor, posterior: DiagGaussian
         rec = torch.sum(bce_with_logits(logits[..., 0], masks.to(logits.dtype)))
     else:
         rec = torch.sum(cross_entropy(logits, masks, class_weights))
-    kl = torch.mean(kl_divergence(posterior, prior))
+    kl = _mean(kl_divergence(posterior, prior), share)
     loss = rec + beta * kl
     return loss, {"reconstruction_loss": rec, "kl": kl}

@@ -1,0 +1,25 @@
+"""Multi-device training on ``torch.distributed`` (counterpart of
+``pmpu_tpu/parallel``): the ranks and their mesh, per-rank sharded data,
+and the data-parallel and host-local steps. Tensor parallelism over the
+``model`` axis is not ported (``make_mesh(model > 1)`` raises)."""
+
+from pmpu_tpu_torch.parallel.hostdata import (  # noqa: F401
+    ShardedTripleBatcher,
+    global_cube,
+    host_volume_names,
+    load_host_store,
+    make_global_batch,
+)
+from pmpu_tpu_torch.parallel.mesh import (  # noqa: F401
+    Mesh,
+    data_sharding,
+    init_distributed,
+    make_mesh,
+    replicated,
+    spawn_world,
+)
+from pmpu_tpu_torch.parallel.sharding import (  # noqa: F401
+    make_dp_train_step,
+    make_hostlocal_dp_train_step,
+    make_hostlocal_eval_step,
+)

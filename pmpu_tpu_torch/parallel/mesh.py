@@ -1,0 +1,164 @@
+"""Ranks and their process group (counterpart of ``pmpu_tpu/parallel/mesh.py``).
+
+The JAX package expresses scaling as a ``jax.sharding.Mesh`` over devices
+with a ``data`` and a ``model`` axis, and XLA inserts the collectives. The
+port runs one process a card (a rank) under ``torch.distributed``: NCCL
+between cards, gloo between CPU processes (the tests). A :class:`Mesh` here
+is the ranks of the default process group laid out as ``data × model``;
+only ``model == 1`` is ported (tensor parallelism is not, ROADMAP.md).
+
+* :func:`init_distributed` — the counterpart of ``multihost_init`` (:42):
+  joins the world that ``torchrun`` (or :func:`spawn_world`) describes in
+  the environment, a no-op returning ``(0, 1)`` without one.
+* :func:`data_sharding` — this rank's block of a batch's rows, split as
+  ``torch.tensor_split`` splits them (the first ``n % data`` blocks one row
+  longer; a rank may get none).
+* :func:`replicated` — rank 0's values of a module's parameters and
+  buffers on every rank (one broadcast of one flat buffer).
+"""
+
+from __future__ import annotations
+
+import os
+import socket
+from dataclasses import dataclass
+
+import torch
+import torch.distributed as dist
+
+from pmpu_tpu_torch.device import resolve_device
+
+# what torchrun sets in each worker's environment
+_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+def world() -> tuple:
+    """(rank, world size) of the default process group; (0, 1) without one."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def env_world_size() -> int:
+    """The world size the environment asks for (``WORLD_SIZE``, 1 unset)."""
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def local_device(device=None) -> torch.device:
+    """``device`` resolved (None: ``"cuda"``); a CUDA device becomes
+    ``cuda:{LOCAL_RANK}`` when the environment names a local rank."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and "LOCAL_RANK" in os.environ:
+        dev = resolve_device(f"cuda:{int(os.environ['LOCAL_RANK'])}")
+    return dev
+
+
+def init_distributed(device=None) -> tuple:
+    """Join the world described by torchrun's environment (``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) and
+    return ``(rank, world size)``: NCCL for a CUDA device, with this process
+    bound to ``cuda:{LOCAL_RANK}``, gloo for the CPU. Without
+    ``WORLD_SIZE`` in the environment it does nothing and returns ``(0,
+    1)``. A failure to join raises; nothing carries on alone."""
+    if "WORLD_SIZE" not in os.environ:
+        return 0, 1
+    missing = [k for k in _ENV if k not in os.environ]
+    if missing:
+        raise RuntimeError(f"init_distributed: WORLD_SIZE is set but {missing} are not")
+    dev = local_device(device)
+    if dist.is_initialized():
+        return world()
+    rank, size = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    url = f"tcp://{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}"
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl", init_method=url, rank=rank, world_size=size)
+    else:
+        dist.init_process_group("gloo", init_method=url, rank=rank, world_size=size)
+    return rank, size
+
+
+def free_port() -> int:
+    """A TCP port on localhost that no socket holds at the moment of asking."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawned(local_rank, nprocs, port, fn, args):
+    os.environ.update(RANK=str(local_rank), LOCAL_RANK=str(local_rank),
+                      WORLD_SIZE=str(nprocs), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    fn(*args)
+
+
+def spawn_world(fn, nprocs: int, args=()) -> None:
+    """Run ``fn(*args)`` in ``nprocs`` fresh processes (the ``spawn`` start
+    method) that form one world on this host: each finds torchrun's
+    variables in its environment (rank = local rank, a free port), so
+    ``fn`` joins with :func:`init_distributed`. ``fn`` must be importable
+    (a module-level function). Returns when every process has ended; a
+    process that raises or dies makes it raise, and the others are ended."""
+    import torch.multiprocessing as mp
+
+    mp.start_processes(_spawned, args=(nprocs, free_port(), fn, tuple(args)), nprocs=nprocs,
+                       join=True, start_method="spawn")
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """``data × model`` ranks of the default process group."""
+
+    data: int
+    model: int = 1
+
+    @property
+    def shape(self) -> dict:
+        return {"data": self.data, "model": self.model}
+
+    @property
+    def size(self) -> int:
+        return self.data * self.model
+
+
+def make_mesh(data: int = -1, model: int = 1) -> Mesh:
+    """A ``(data, model)`` mesh of the world's ranks; ``data=-1`` takes all
+    the ranks ``model`` leaves (JAX :17, the same checks). ``model > 1``
+    raises ``NotImplementedError``: tensor parallelism is not ported."""
+    n = world()[1]
+    if data == -1:
+        if n % model:
+            raise ValueError(f"{n} ranks not divisible by model={model}")
+        data = n // model
+    if data * model > n:
+        raise ValueError(f"mesh {data}x{model} exceeds {n} ranks")
+    if model != 1:
+        raise NotImplementedError(
+            f"make_mesh(model={model}): tensor parallelism over the 'model' axis is not "
+            "ported to pmpu_tpu_torch (ROADMAP.md queue 1)")
+    return Mesh(data, model)
+
+
+def data_sharding(mesh: Mesh, n: int, rank: int | None = None) -> slice:
+    """The rows of a batch of ``n`` that rank ``rank`` (default: this one)
+    holds on the mesh's data axis, as ``torch.tensor_split(rows,
+    mesh.data)`` gives them: the first ``n % data`` ranks one row more."""
+    r = world()[0] if rank is None else rank
+    base, extra = divmod(n, mesh.data)
+    start = r * base + min(r, extra)
+    return slice(start, start + base + (r < extra))
+
+
+def replicated(module: torch.nn.Module, src: int = 0) -> torch.nn.Module:
+    """Give every rank rank ``src``'s parameters and buffers (one broadcast
+    of one flat buffer a dtype); nothing without a process group."""
+    if world()[1] == 1:
+        return module
+    tensors = [t for t in (*module.parameters(), *module.buffers())]
+    for dtype in sorted({t.dtype for t in tensors}, key=str):
+        group = [t for t in tensors if t.dtype == dtype]
+        flat = torch.cat([t.detach().reshape(-1) for t in group])
+        dist.broadcast(flat, src)
+        with torch.no_grad():
+            for t, v in zip(group, flat.split([t.numel() for t in group])):
+                t.copy_(v.view_as(t))
+    return module

@@ -16,6 +16,18 @@ the remaining epochs and ``--epoch-offset`` advanced, so the run ends in a
 fresh process with the epoch numbering of one run. SIGINT stays blocked
 across the ``execv`` (pending, not fatal, while the new interpreter
 imports) and the new process unblocks it first thing.
+
+Several cards (``--data-parallel``, ``--sharded-volumes``; JAX ``train.py``
+:46-52), one process a card on ``torch.distributed`` with NCCL:
+
+    torchrun --nproc-per-node 4 -m pmpu_tpu_torch.train --data-parallel ...
+
+joins the world torchrun describes (``parallel.init_distributed`` before
+the store is read; the device is ``cuda:{LOCAL_RANK}``). Without torchrun's
+environment, either flag with more than one visible card starts one worker
+per card itself (``parallel.spawn_world``: a free port on localhost), so
+that the flag means every visible device, as in JAX. On the CPU
+(``--device cpu``) the world uses gloo.
 """
 
 from __future__ import annotations
@@ -26,9 +38,13 @@ import os
 import signal
 import sys
 
+import torch
+import torch.distributed as dist
+
 from pmpu_tpu_torch.config import add_train_args, config_from_args
 from pmpu_tpu_torch.data.volumes import VolumeStore
 from pmpu_tpu_torch.device import resolve_device
+from pmpu_tpu_torch.parallel.mesh import env_world_size, init_distributed, local_device, spawn_world
 from pmpu_tpu_torch.train.loop import RssLimitExceeded, check_ported, train_net
 
 
@@ -43,17 +59,27 @@ def main(argv=None) -> int:
     args = add_train_args(parser).parse_args(argv)
     cfg = config_from_args(args)
     device = resolve_device(args.device)
-    check_ported(cfg, device)
+    spawn = ((cfg.data_parallel or cfg.sharded_volumes) and "WORLD_SIZE" not in os.environ
+             and device.type == "cuda" and torch.cuda.device_count() > 1)
+    check_ported(cfg, torch.cuda.device_count() if spawn else env_world_size())
+    if spawn:
+        logging.info("one worker per card: %d processes", torch.cuda.device_count())
+        spawn_world(main, torch.cuda.device_count(), (argv,))
+        return 0
     if cfg.compile_cache:
         logging.info("--compile-cache %s ignored: PyTorch runs eagerly, there is no "
                      "compilation cache", cfg.compile_cache)
     if cfg.dir is None:
         parser.error("-d/--dir DATA_DIR is required")
-    store = VolumeStore.from_dirs(os.path.join(cfg.dir, "images"),
-                                  os.path.join(cfg.dir, "labels"), mmap_dir=cfg.mmap_store)
-    logging.info("Creating dataset of %d scans (cube %d, %d slices/volume)",
-                 len(store), store.cube, store.slices_per_volume)
+    rank, n_ranks = init_distributed(device)  # no-op without torchrun's environment
+    device = local_device(args.device)
+    if n_ranks > 1:
+        logging.info("rank %d of %d on %s", rank, n_ranks, device)
     try:
+        store = VolumeStore.from_dirs(os.path.join(cfg.dir, "images"),
+                                      os.path.join(cfg.dir, "labels"), mmap_dir=cfg.mmap_store)
+        logging.info("Creating dataset of %d scans (cube %d, %d slices/volume)",
+                     len(store), store.cube, store.slices_per_volume)
         train_net(cfg, store, device=device)  # writes INTERRUPTED.pth itself
     except KeyboardInterrupt:
         return 0
@@ -66,6 +92,9 @@ def main(argv=None) -> int:
         sys.stderr.flush()
         signal.pthread_sigmask(signal.SIG_BLOCK, {signal.SIGINT})
         os.execv(sys.executable, cmd)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     return 0
 
 

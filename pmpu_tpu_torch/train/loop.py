@@ -1,6 +1,7 @@
 """Training loop (counterpart of ``pmpu_tpu/train/loop.py``: ``split_indices``
 :75, ``train_net`` :83, ``_model_config`` :403, the epoch loop :466) on one
-device.
+device or on the ranks of a ``torch.distributed`` world (one process a
+card, ``parallel.init_distributed``).
 
 Per epoch: a train phase over the shuffled (scan, view, slice) rows and a
 validation phase with the validation loss and per-class Dice, TensorBoard
@@ -23,6 +24,27 @@ Data (:92-181), one of:
   device by ``data/pipeline.py::PrefetchPipeline``, on a bf16 image wire
   under ``--bf16`` without ``--augment`` and a uint8 mask wire when every
   label is in [0, 256).
+In a world of several ranks (JAX :129-149, :215-235), every rank reads the
+whole store, draws the same split and epoch order, and uploads what it needs:
+* ``--sharded-volumes`` (3 views, no ``--stream``, no accumulation, the
+  batch divisible by the ranks): its contiguous block of the volumes as the
+  plain stack; ``parallel.hostdata.ShardedTripleBatcher`` gives each rank
+  its rows (scan ids local to its block) and ``make_hostlocal_dp_train_step``
+  averages the gradients, BatchNorm statistics and losses; validation
+  weighs each rank by its real rows (``make_hostlocal_eval_step``). Each
+  rank's generator is seeded by ``(seed, rank)`` (``rank_seed``);
+* ``--data-parallel`` (not with ``--stream``, as in JAX): the whole
+  stacks; every step takes the global rows and each rank runs its share of
+  each microbatch (``make_dp_train_step``: the one-device step's result);
+  the validation round's steps are split over the ranks in blocks, each
+  step the one-device eval step on its global rows, and the ranks' sums are
+  all-reduced, so every rank makes the same plateau decision.
+Rank 0 alone writes checkpoints, TensorBoard and the progress bars; the
+others wait at a barrier after each checkpoint. SIGINT and SIGTERM set a
+flag that the step's all-reduce carries to every rank (the validation
+round reads it once, at its end), so all ranks stop after the same step.
+On one rank ``--data-parallel`` runs the one-device step, as in JAX.
+
 The host sends only (scan, view, slice) rows. The numpy parts are the JAX
 package's: ``np.random.default_rng(cfg.seed)`` gives the same train/val
 split and the same epoch order. The posterior and augmentation draws come
@@ -51,6 +73,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pmpu_tpu_torch.config import Config
 from pmpu_tpu_torch.data.augment import AugmentConfig
@@ -68,6 +91,15 @@ from pmpu_tpu_torch.data.sampler import (
 )
 from pmpu_tpu_torch.data.volumes import VolumeStore, make_view_stacks
 from pmpu_tpu_torch.device import resolve_device
+from pmpu_tpu_torch.parallel.hostdata import ShardedTripleBatcher
+from pmpu_tpu_torch.parallel.mesh import data_sharding, make_mesh, replicated, world
+from pmpu_tpu_torch.parallel.sharding import (
+    make_dp_train_step,
+    make_hostlocal_dp_train_step,
+    make_hostlocal_eval_step,
+    rank_seed,
+    sum_values,
+)
 from pmpu_tpu_torch.train import checkpoint as ckpt
 from pmpu_tpu_torch.train.schedule import ReduceLROnPlateau
 from pmpu_tpu_torch.train.steps import create_train_state, make_eval_step, make_train_step
@@ -78,26 +110,19 @@ from pmpu_tpu_torch.utils.tblog import MetricWriter
 
 log = logging.getLogger(__name__)
 
-# Config fields of training paths not ported yet, with their flags
-_UNPORTED = (
-    ("sharded_volumes", "--sharded-volumes"),
-    ("async_checkpoints", "--async-checkpoints"),
-)
-
-
-def check_ported(cfg: Config, device: torch.device):
+def check_ported(cfg: Config, world_size: int = 1):
     """Raise, naming every flag of ``cfg`` that asks for a training path the
-    port does not have: ``--sharded-volumes`` and ``--data-parallel`` over
-    more than one device (multi-device training, ROADMAP.md queue 1) and
-    ``--async-checkpoints`` (Orbax directories, which only orbax, a jax
-    package, reads and writes)."""
-    bad = [flag for field, flag in _UNPORTED if getattr(cfg, field)]
-    if cfg.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        bad.append("--data-parallel over more than one device")
+    port does not have: ``--async-checkpoints`` (Orbax directories, which
+    only orbax, a jax package, reads and writes) and ``--rss-limit-mb`` in a
+    world of more than one rank (the re-execution of one rank would leave
+    the others; ROADMAP.md queue 1)."""
+    bad = ["--async-checkpoints"] if cfg.async_checkpoints else []
+    if cfg.rss_limit_mb and world_size > 1:
+        bad.append(f"--rss-limit-mb in a world of {world_size} ranks")
     if bad:
         raise NotImplementedError(
-            "not in pmpu_tpu_torch's training (multi-device training and Orbax "
-            "checkpoints are not ported): " + ", ".join(bad))
+            "not in pmpu_tpu_torch's training (Orbax checkpoints and the bounded-RSS "
+            "re-execution of a multi-rank world are not ported): " + ", ".join(bad))
 
 
 class RssLimitExceeded(Exception):
@@ -129,14 +154,20 @@ def acc_steps_for(batchsize: int) -> int:
 
 
 def train_net(cfg: Config, store: VolumeStore, interrupt_flag=None, device=None):
-    """Run training; returns (state, task, history dict)."""
+    """Run training; returns (state, task, history dict). In a world of
+    several ranks (``parallel.init_distributed``) every rank calls it with
+    the whole store."""
     device = resolve_device(device)
-    check_ported(cfg, device)
+    rank, n_ranks = world()
+    check_ported(cfg, n_ranks)
     task = make_task(cfg.net, **cfg.task_kwargs(), device=device, seed=cfg.seed, train=True)
     n_classes = task.n_classes
+    if cfg.sharded_volumes and cfg.num_views != 3:
+        raise ValueError("--sharded-volumes requires the 3 standard views")
+    data_parallel = cfg.data_parallel and not cfg.sharded_volumes and n_ranks > 1
 
     rng = np.random.default_rng(cfg.seed)
-    stream_pipe = None
+    stream_pipe = mesh = None
     if cfg.num_views != 3:
         bases = np.stack([view_basis(a) for a in fibonacci_views(cfg.num_views)])
         if cfg.view_stacks:
@@ -153,7 +184,24 @@ def train_net(cfg: Config, store: VolumeStore, interrupt_flag=None, device=None)
         if cfg.stream:
             log.warning("--stream requires the 3 standard views; using the device-resident "
                         "oblique path")
+    elif cfg.sharded_volumes:
+        # each rank holds its contiguous block of the volumes and gathers
+        # from it alone (plain stack, sample_batch, as the JAX shard_map body)
+        if cfg.stream:
+            raise ValueError("--sharded-volumes and --stream are mutually exclusive")
+        mesh = make_mesh()
+        n_shards = mesh.data
+        if len(store) % n_shards:
+            raise ValueError(f"{len(store)} volumes not divisible by {n_shards} ranks "
+                             "(--sharded-volumes needs equal shards)")
+        index = build_index_map(store.labels, filter=cfg.slice_filter)
+        vols = len(store) // n_shards
+        block = slice(rank * vols, (rank + 1) * vols)
+        images_d = _upload(store.images[block], device)
+        labels_d = _upload(store.labels[block], device)
     elif cfg.stream:
+        if cfg.data_parallel:
+            raise ValueError("--stream is not supported with --data-parallel yet")
         index = build_index_map(store.labels, filter=cfg.slice_filter)
         images_d = labels_d = None
         sampler = sample_rows
@@ -182,11 +230,15 @@ def train_net(cfg: Config, store: VolumeStore, interrupt_flag=None, device=None)
         log.info("restricted to views %s: %d slices", cfg.train_views, len(index))
     train_idx, val_idx = split_indices(len(index), cfg.val / 100.0, rng)
 
-    acc_steps = acc_steps_for(cfg.batchsize)
+    # a sharded volume pool spreads the batch over the ranks, not over
+    # microbatches
+    acc_steps = 1 if cfg.sharded_volumes else acc_steps_for(cfg.batchsize)
     micro = max(cfg.batchsize // acc_steps, 1)
     per_step = micro * acc_steps
 
-    state = create_train_state(task, seed=cfg.seed, momentum=cfg.om, lr=cfg.lr)
+    # --sharded-volumes: each rank draws from its own generator
+    seed = rank_seed(cfg.seed, rank) if cfg.sharded_volumes else cfg.seed
+    state = create_train_state(task, seed=seed, momentum=cfg.om, lr=cfg.lr)
     plateau = ReduceLROnPlateau(
         lr=cfg.lr, mode="min" if n_classes > 1 else "max", factor=cfg.lrf, patience=cfg.lrp,
     )
@@ -196,37 +248,88 @@ def train_net(cfg: Config, store: VolumeStore, interrupt_flag=None, device=None)
         if payload.get("plateau"):
             plateau = ReduceLROnPlateau.from_state_dict(payload["plateau"])
             log.info("restored plateau scheduler (lr=%g)", plateau.lr)
+        if cfg.sharded_volumes and rank:
+            # the file holds rank 0's generator: the others go on from
+            # their own seed and the restored step
+            state.generator.manual_seed(rank_seed(cfg.seed, rank, state.step))
+    if n_ranks > 1:
+        replicated(task.net)
     aug = AugmentConfig(elastic_alpha=cfg.elastic_alpha) if cfg.augment else None
-    train_step = make_train_step(task, acc_steps=acc_steps, sampler=sampler, augment=aug,
-                                 remat=cfg.remat)
-    eval_step = make_eval_step(task, sampler=sampler)
+    sv = None
+    if cfg.sharded_volumes:
+        train_step = make_hostlocal_dp_train_step(task, mesh, acc_steps=acc_steps, augment=aug,
+                                                  remat=cfg.remat)
+        eval_step = make_hostlocal_eval_step(task, mesh)
+        if per_step % n_shards:
+            raise ValueError(f"--sharded-volumes: batch {per_step} not divisible by {n_shards} "
+                             "shards; pick a multiple of the shard count.")
+        per_shard = per_step // n_shards
+        train_bat = ShardedTripleBatcher(index[train_idx], len(store), n_shards)
+        if train_bat.steps_per_epoch(per_shard) == 0:
+            raise ValueError(
+                f"--sharded-volumes: smallest shard has "
+                f"{min(len(r) for r in train_bat.shard_rows)} training rows < per-shard batch "
+                f"{per_shard}; use a smaller batch, fewer shards, or --include-empty-slices.")
+        val_bat = (ShardedTripleBatcher(index[val_idx], len(store), n_shards, pad=True)
+                   if len(val_idx) else None)
+        sv = (train_bat, val_bat, per_shard)
+        log.info("sharded volume pool: %d volumes over %d ranks", len(store), n_shards)
+    elif data_parallel:
+        mesh = make_mesh()
+        train_step = make_dp_train_step(task, mesh, acc_steps=acc_steps, sampler=sampler,
+                                        augment=aug, remat=cfg.remat)
+        eval_step = make_eval_step(task, sampler=sampler)
+        log.info("data parallel over %d ranks", mesh.data)
+    else:
+        train_step = make_train_step(task, acc_steps=acc_steps, sampler=sampler, augment=aug,
+                                     remat=cfg.remat)
+        eval_step = make_eval_step(task, sampler=sampler)
+    lead = rank == 0  # writes the checkpoints, TensorBoard and the progress bars
     writer = MetricWriter(
         logdir=cfg.logdir,
         comment=f"LRF_{cfg.lrf}_LRP_{cfg.lrp}_EP_{cfg.epochs}_LR_{cfg.lr}_BS_{cfg.batchsize}",
-        enable_tb=cfg.logdir is not None or cfg.save_cp,
+        enable_tb=lead and (cfg.logdir is not None or cfg.save_cp),
     )
     log.info(
-        "Starting training: epochs=%d batch=%d (%d x %d) lr=%g train=%d val=%d device=%s",
+        "Starting training: epochs=%d batch=%d (%d x %d) lr=%g train=%d val=%d device=%s "
+        "rank %d of %d",
         cfg.epochs, cfg.batchsize, acc_steps, micro, cfg.lr, len(train_idx), len(val_idx),
-        device,
+        device, rank, n_ranks,
     )
     history = {"train_loss": [], "val_loss": [], "val_dice": [], "step_time": []}
     os.makedirs(cfg.checkpoint_dir, exist_ok=True)
     model_extra = {"model_config": _model_config(cfg, task)}
 
+    def save(path, wait=True):
+        """Rank 0 writes; with ``wait`` the other ranks wait for it."""
+        if lead:
+            ckpt.save_checkpoint(path, state, plateau, extra=model_extra)
+        if wait and n_ranks > 1:
+            dist.barrier()
+
     # SIGTERM (preemption) sets a flag that the step loops poll, so the
-    # INTERRUPTED.pth save sees a state between two steps; a handler can be
-    # installed on the main thread only
-    sigterm_hit = {"v": False}
-    try:
-        prev_term = signal.signal(signal.SIGTERM, lambda *_: sigterm_hit.__setitem__("v", True))
-    except ValueError:
-        prev_term = None
+    # INTERRUPTED.pth save sees a state between two steps; in a world SIGINT
+    # does too, and the flag goes to every rank in the step's all-reduce, so
+    # that all stop after the same step. A handler can be installed on the
+    # main thread only.
+    sig_hit = {"v": False}
+    prev = {}
+    for sig in (signal.SIGTERM, signal.SIGINT) if n_ranks > 1 else (signal.SIGTERM,):
+        try:
+            prev[sig] = signal.signal(sig, lambda *_: sig_hit.__setitem__("v", True))
+        except ValueError:
+            pass
     user_flag = interrupt_flag
 
     def interrupted():
-        return sigterm_hit["v"] or bool(user_flag and user_flag())
+        return sig_hit["v"] or bool(user_flag and user_flag())
 
+    if sv is not None:
+        n_chips = n_shards
+    elif data_parallel:
+        n_chips = n_ranks
+    else:
+        n_chips = 1
     ctx = trace(cfg.profile_dir) if cfg.profile_dir else contextlib.nullcontext()
     if cfg.nan_checks:
         enable_nan_checks()
@@ -234,10 +337,10 @@ def train_net(cfg: Config, store: VolumeStore, interrupt_flag=None, device=None)
         with ctx:
             _epoch_loop(cfg, task, state, train_step, eval_step, plateau, writer, images_d,
                         labels_d, index, train_idx, val_idx, rng, per_step, history,
-                        interrupted, model_extra, device, stream_pipe)
+                        interrupted, save, device, stream_pipe, sv, n_chips)
     except KeyboardInterrupt:
-        ckpt.save_checkpoint("INTERRUPTED.pth", state, plateau, extra=model_extra)
-        log.info("Saved interrupt%s", " (SIGTERM preemption)" if sigterm_hit["v"] else "")
+        save("INTERRUPTED.pth")
+        log.info("Saved interrupt%s", " (signal)" if sig_hit["v"] else "")
         raise
     except RssLimitExceeded:
         writer.close()  # flush before the CLI re-executes the process
@@ -245,12 +348,12 @@ def train_net(cfg: Config, store: VolumeStore, interrupt_flag=None, device=None)
     finally:
         if cfg.nan_checks:
             enable_nan_checks(False)
-        if prev_term is not None:
-            signal.signal(signal.SIGTERM, prev_term)
+        for sig, handler in prev.items():
+            signal.signal(sig, handler)
 
     if cfg.save_cp:
         path = os.path.join(cfg.checkpoint_dir, f"{task.name}_model.pt")
-        ckpt.save_checkpoint(path, state, plateau, extra=model_extra)
+        save(path)
         log.info("Saved model %s", path)
     writer.close()
     return state, task, history
@@ -286,9 +389,22 @@ class _LineBar:
         print(f"{self.desc}: {self.n}/{self.total} img {self.postfix}".rstrip(), flush=True)
 
 
-def _pbar(total, desc):
+class _NullBar:
+    def update(self, n):
+        pass
+
+    def set_postfix(self, **kw):
+        pass
+
+    def close(self):
+        pass
+
+
+def _pbar(total, desc, show=True):
     """A tqdm bar (off when stderr is not a terminal), or :class:`_LineBar`
-    where tqdm is not installed."""
+    where tqdm is not installed; nothing unless ``show``."""
+    if not show:
+        return _NullBar()
     try:
         from tqdm import tqdm
     except ImportError:
@@ -310,10 +426,12 @@ def _stream_rows(n, device) -> torch.Tensor:
 
 
 def _epoch_loop(cfg, task, state, train_step, eval_step, plateau, writer, images_d, labels_d,
-                index, train_idx, val_idx, rng, per_step, history, interrupted, model_extra,
-                device, stream_pipe=None):
+                index, train_idx, val_idx, rng, per_step, history, interrupted, save, device,
+                stream_pipe=None, sv=None, n_chips=1):
     n_classes = task.n_classes
-    timer = StepTimer(slices_per_step=per_step)
+    rank, n_ranks = world()
+    lead = rank == 0
+    timer = StepTimer(slices_per_step=per_step, n_chips=n_chips)
     autosave_t = time.monotonic()
     global_step = 0
     for epoch in range(cfg.epochs):
@@ -321,42 +439,55 @@ def _epoch_loop(cfg, task, state, train_step, eval_step, plateau, writer, images
         order = rng.permutation(len(train_idx))
         n_steps = len(order) // per_step
         epoch_losses = []
-        pbar = _pbar(len(train_idx), f"Epoch {epoch + 1}/{cfg.epochs}")
+        pbar = _pbar(len(train_idx), f"Epoch {epoch + 1}/{cfg.epochs}", lead)
         pending = []  # (global step, metrics) dispatched, not fetched
+        stop = [False]  # a rank was interrupted (a world: from the step's all-reduce)
 
         def drain():
             gs, m = pending.pop(0)
             loss = float(m["loss"])  # waits for that step only
+            stop[0] = stop[0] or float(m.get("stop", 0.0)) > 0
             epoch_losses.append(loss)
             writer.scalar("Loss/train", loss, gs)
             pbar.update(per_step)
             pbar.set_postfix(loss=f"{loss:.4f}")
 
-        sels = [train_idx[order[i * per_step:(i + 1) * per_step]] for i in range(n_steps)]
-        if stream_pipe is None:
+        if sv is not None:
+            train_bat, _, per_shard = sv
+            mine = slice(rank * per_shard, (rank + 1) * per_shard)
+            batches = ((images_d, labels_d, _upload(t[mine], device))
+                       for t in train_bat.epoch_batches(per_shard, rng))
+        elif stream_pipe is None:
+            sels = [train_idx[order[i * per_step:(i + 1) * per_step]] for i in range(n_steps)]
             batches = ((images_d, labels_d, _rows(index, sel, device)) for sel in sels)
         else:
+            sels = [train_idx[order[i * per_step:(i + 1) * per_step]] for i in range(n_steps)]
             rows = _stream_rows(per_step, device)
             batches = ((imgs, lbls, rows) for imgs, lbls in
                        stream_pipe.iterate([index[sel] for sel in sels]))
         for images, labels, triples in batches:
-            if interrupted():
+            if n_ranks == 1 and interrupted():
+                stop[0] = True
+            if stop[0]:
                 batches.close()  # stops a stream's producer
                 raise KeyboardInterrupt
             timer.start()
-            state, metrics = train_step(state, images, labels, triples, plateau.lr)
+            state, metrics = train_step(state, images, labels, triples, plateau.lr,
+                                        stop=n_ranks > 1 and interrupted())
             pending.append((global_step, metrics))
             while len(pending) > 1:
                 drain()
             timer.stop()
             if cfg.autosave_minutes and time.monotonic() - autosave_t >= cfg.autosave_minutes * 60:
                 path = os.path.join(cfg.checkpoint_dir, f"{task.name}_autosave.pt")
-                ckpt.save_checkpoint(path, state, plateau, extra=model_extra)
+                save(path, wait=False)  # each rank's own clock: no barrier
                 autosave_t = time.monotonic()
                 log.info("autosave %s (step %d)", path, global_step)
             global_step += 1
         while pending:
             drain()
+        if stop[0]:
+            raise KeyboardInterrupt
         pbar.close()
         history["train_loss"].append(float(np.mean(epoch_losses)) if epoch_losses
                                      else float("nan"))
@@ -366,27 +497,48 @@ def _epoch_loop(cfg, task, state, train_step, eval_step, plateau, writer, images
             writer.scalar("perf/slices_per_sec_per_chip", timer.slices_per_sec, global_step)
 
         # ---------------- validation phase ----------------
-        val_steps = max(len(val_idx) // per_step, 1) if len(val_idx) else 0
-        val_sels = [s for s in (val_idx[i * per_step:(i + 1) * per_step]
-                                for i in range(val_steps)) if len(s)]
-        vbar = _pbar(len(val_sels) * per_step, "Validation round")
-        if stream_pipe is None:
-            val_batches = ((images_d, labels_d, _rows(index, sel, device)) for sel in val_sels)
+        # in a world the interrupt flag is read once, after the round (every
+        # rank at the same point)
+        def check_interrupt():
+            if n_ranks == 1 and interrupted():
+                raise KeyboardInterrupt
+
+        if sv is not None:
+            _, val_bat, per_shard = sv
+            val_rows = ([t[mine] for t in val_bat.epoch_batches(per_shard,
+                                                                 np.random.default_rng(0))]
+                        if val_bat is not None else [])
+            weight = val_bat.shard_real_rows[rank] if val_bat is not None else 0.0
+            val_batches = ((images_d, labels_d, _upload(t, device), weight) for t in val_rows)
+            n_val = len(val_rows)
         else:
-            val_batches = ((imgs, lbls, _stream_rows(len(imgs), device)) for imgs, lbls in
-                           stream_pipe.iterate([index[sel] for sel in val_sels]))
+            val_steps = max(len(val_idx) // per_step, 1) if len(val_idx) else 0
+            val_sels = [s for s in (val_idx[i * per_step:(i + 1) * per_step]
+                                    for i in range(val_steps)) if len(s)]
+            n_val = len(val_sels)
+            if n_ranks > 1:
+                # --data-parallel: each rank runs its block of the whole steps
+                # (each step the one-device eval step on its global rows)
+                val_sels = val_sels[data_sharding(make_mesh(), n_val, rank)]
+            if stream_pipe is None:
+                val_batches = ((images_d, labels_d, _rows(index, sel, device))
+                               for sel in val_sels)
+            else:
+                val_batches = ((imgs, lbls, _stream_rows(len(imgs), device)) for imgs, lbls in
+                               stream_pipe.iterate([index[sel] for sel in val_sels]))
+        vbar = _pbar(n_val * per_step, "Validation round", lead)
         val_pending, first_images = [], None
-        for images, labels, triples in val_batches:
-            if interrupted():
+        for args in val_batches:
+            if n_ranks == 1 and interrupted():
                 val_batches.close()
                 raise KeyboardInterrupt
-            vloss, dice, preds, img, msk = eval_step(state, images, labels, triples)
+            vloss, dice, preds, img, msk = eval_step(state, *args)
             val_pending.append((vloss, dice))
             if first_images is None:  # one image triplet a validation round
                 first_images = (preds, img, msk, global_step)
-            global_step += 1
             vbar.update(per_step)
-        if first_images is not None:
+        global_step += n_val
+        if first_images is not None and lead:
             preds, img, msk, img_step = (t.cpu().numpy() if torch.is_tensor(t) else t
                                          for t in first_images)
             writer.images("images", img, img_step)
@@ -398,10 +550,15 @@ def _epoch_loop(cfg, task, state, train_step, eval_step, plateau, writer, images
             loss_sum += float(vloss)
             dice_sum += dice.cpu().numpy()
         vbar.close()
+        if n_ranks > 1 and sv is None:
+            # the ranks' sums of their steps, equal on every rank, so are the
+            # plateau decisions
+            loss_sum, *rest = sum_values([loss_sum, *dice_sum])
+            dice_sum = np.asarray(rest)
 
-        if val_sels:
-            avg_loss = loss_sum / len(val_sels)
-            avg_dice = dice_sum / len(val_sels)
+        if n_val:
+            avg_loss = loss_sum / n_val
+            avg_dice = dice_sum / n_val
             writer.scalar("Loss/validation", avg_loss, global_step)
             writer.scalar("learning_rate", plateau.lr, global_step)
             for c in range(n_classes - 1):
@@ -419,13 +576,13 @@ def _epoch_loop(cfg, task, state, train_step, eval_step, plateau, writer, images
         gepoch = epoch + cfg.epoch_offset
         if cfg.save_cp and (epoch + 1) % max(cfg.checkpoint_every, 1) == 0:
             path = os.path.join(cfg.checkpoint_dir, f"{task.name}_checkpoint{gepoch}.pt")
-            ckpt.save_checkpoint(path, state, plateau, extra=model_extra)
+            save(path)
             log.info("Saved model %s", path)
         log.info(
             "epoch %d/%d done (%.4fs/step median, %.1f slices/s/chip)",
             gepoch + 1, cfg.epochs + cfg.epoch_offset, timer.sec_per_step, timer.slices_per_sec,
         )
-        if interrupted():
+        if sum_values([interrupted()])[0]:  # any rank's flag stops every rank
             raise KeyboardInterrupt
 
         rss = rss_mb() if cfg.rss_limit_mb else 0.0
@@ -434,7 +591,7 @@ def _epoch_loop(cfg, task, state, train_step, eval_step, plateau, writer, images
             # process restores state, momentum, generator and plateau from
             # this checkpoint and runs the remaining epochs
             path = os.path.join(cfg.checkpoint_dir, f"{task.name}_rss_resume.pt")
-            ckpt.save_checkpoint(path, state, plateau, extra=model_extra)
+            save(path)
             log.warning("rss %.0f MB exceeds --rss-limit-mb %.0f after epoch %d; resume "
                         "checkpoint %s", rss, cfg.rss_limit_mb, epoch + 1, path)
             raise RssLimitExceeded(path, epoch + 1, rss)

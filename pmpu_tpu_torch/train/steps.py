@@ -28,6 +28,15 @@ change nothing, so the posterior eps are drawn before the checkpointed call
 the step's) and the BatchNorm running statistics are updated by the first
 forward only (``update_running`` off in the recompute).
 
+``parallel`` (None: this process runs the whole batch) is how a step of
+several ranks splits and reduces (``parallel/sharding.py``): an object with
+``take(x)`` (this rank's rows of a microbatch-sized tensor: the rows, the
+eps, the augmentation draws), ``share(micro)`` (the ``BatchShare`` the
+losses take, or None), ``context(net, share)`` (entered around the
+microbatches and their backward passes: the synchronized BatchNorm) and
+``reduce(state, metrics, stop)`` (the all-reduce after the accumulation,
+before the clip; returns the reduced metrics with ``"stop"``).
+
 ``mask_inert_bn_biases`` (:79, always on) turns off the gradient of
 every conv bias whose output feeds a train-mode BatchNorm (found by
 structure: a ``Conv2d`` followed by a ``BatchNorm2d`` in one
@@ -45,7 +54,7 @@ from torch import nn
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
-from pmpu_tpu_torch.data.augment import augment_batch
+from pmpu_tpu_torch.data.augment import augment_batch, draw_augment
 from pmpu_tpu_torch.data.sampler import sample_batch
 from pmpu_tpu_torch.device import exact_f32
 from pmpu_tpu_torch.models.unet import BatchNorm2d
@@ -135,9 +144,9 @@ def running_stats_frozen(net: nn.Module):
 
 
 def make_train_step(task, acc_steps: int = 1, sampler=sample_batch, augment=None,
-                    remat: bool = False):
-    """step(state, images, labels, triples, lr, eps=None, draws=None) →
-    (state, metrics).
+                    remat: bool = False, parallel=None):
+    """step(state, images, labels, triples, lr, eps=None, draws=None,
+    stop=False) → (state, metrics).
 
     * images/labels: the device-resident (N,S,S,S) stacks for
       ``sample_batch`` (or ``make_oblique_sampler``), (V,N,S,S,S) view
@@ -150,50 +159,67 @@ def make_train_step(task, acc_steps: int = 1, sampler=sample_batch, augment=None
     * draws: None (``augment`` draws from ``state.generator``), or one
       ``draw_augment`` dict per microbatch
     * metrics: the microbatches' mean of each loss term, device scalars
+    * stop: with ``parallel``, this rank's interrupt flag, carried in the
+      step's all-reduce: ``metrics["stop"]`` is 1 on every rank when any
+      rank was interrupted (ignored without ``parallel``)
 
     Each microbatch is scoped for the profiler as ``sample``, ``augment``,
     ``forward``, ``backward``; the update as ``optimizer``.
     """
     net = task.net
 
-    def loss_fn(img, msk, eps):
-        return task.train_loss(img, msk, None, eps)
+    def take(x):
+        return x if parallel is None or x is None else parallel.take(x)
 
-    def step(state: TrainState, images, labels, triples, lr, eps=None, draws=None):
+    def step(state: TrainState, images, labels, triples, lr, eps=None, draws=None,
+             stop=False):
         params = state.params
         micro = triples.shape[0] // acc_steps
+        share = None if parallel is None else parallel.share(micro)
+
+        def loss_fn(img, msk, eps):
+            return task.train_loss(img, msk, None, eps, share)
+
         state.optimizer.zero_grad(set_to_none=True)
         auxes = []
-        for i in range(acc_steps):
-            with record_function("sample"):
-                img, msk = sampler(images, labels, triples[i * micro:(i + 1) * micro])
-            if augment is not None:
-                with record_function("augment"):
-                    img, msk = augment_batch(img, msk, state.generator, augment,
-                                             None if draws is None else draws[i])
-            e = task.draw_eps(state.generator, micro) if eps is None else eps[i]
-            with record_function("forward"):
-                if remat:
-                    loss, aux = checkpoint(
-                        loss_fn, img, msk, e, use_reentrant=False, preserve_rng_state=False,
-                        context_fn=lambda: (contextlib.nullcontext(),
-                                            running_stats_frozen(net)))
-                else:
-                    loss, aux = loss_fn(img, msk, e)
-            with record_function("backward"):
-                backward(loss)
-            auxes.append(aux)
+        ctx = contextlib.nullcontext() if parallel is None else parallel.context(net, share)
+        with ctx:
+            for i in range(acc_steps):
+                with record_function("sample"):
+                    img, msk = sampler(images, labels, take(triples[i * micro:(i + 1) * micro]))
+                if augment is not None:
+                    with record_function("augment"):
+                        d = (draw_augment((micro, *img.shape[1:]), augment, state.generator)
+                             if draws is None else draws[i])
+                        img, msk = augment_batch(img, msk, state.generator, augment,
+                                                 {k: take(v) for k, v in d.items()})
+                e = take(task.draw_eps(state.generator, micro) if eps is None else eps[i])
+                with record_function("forward"):
+                    if remat:
+                        loss, aux = checkpoint(
+                            loss_fn, img, msk, e, use_reentrant=False, preserve_rng_state=False,
+                            context_fn=lambda: (contextlib.nullcontext(),
+                                                running_stats_frozen(net)))
+                    else:
+                        loss, aux = loss_fn(img, msk, e)
+                with record_function("backward"):
+                    backward(loss)
+                auxes.append(aux)
+        metrics = {k: torch.stack([a[k] for a in auxes]).mean() for k in auxes[0]}
         with record_function("optimizer"):
             if acc_steps > 1:
                 with torch.no_grad():
                     for p in params:
                         if p.grad is not None:
                             p.grad.div_(acc_steps)
+            if parallel is not None:
+                with record_function("all_reduce"):
+                    metrics = parallel.reduce(state, metrics, stop)
             torch.nn.utils.clip_grad_value_(params, CLIP)
             set_lr(state.optimizer, lr)
             state.optimizer.step()
         state.step += 1
-        return state, {k: torch.stack([a[k] for a in auxes]).mean() for k in auxes[0]}
+        return state, metrics
 
     return step
 

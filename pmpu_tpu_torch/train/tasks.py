@@ -77,17 +77,17 @@ class UNetTask:
             device, seed, train,
         )
 
-    def _loss(self, preds, msk):
-        base = losses.unet_loss(preds, msk, self.n_classes, self.class_weights)
+    def _loss(self, preds, msk, share=None):
+        base = losses.unet_loss(preds, msk, self.n_classes, self.class_weights, share)
         if self.loss_type == "auto":
             return base
         m = msk[..., 0] if msk.dim() == 4 else msk
         if self.n_classes == 1:
-            dice = losses.soft_dice_loss(preds[..., 0], m.to(preds.dtype))
+            dice = losses.soft_dice_loss(preds[..., 0], m.to(preds.dtype), share=share)
         else:
             probs = torch.softmax(preds, dim=-1)
             per_class = [
-                losses.soft_dice_loss(probs[..., c], (m == c).to(probs.dtype))
+                losses.soft_dice_loss(probs[..., c], (m == c).to(probs.dtype), share=share)
                 for c in range(1, self.n_classes)
             ]
             dice = sum(per_class) / len(per_class)
@@ -97,10 +97,11 @@ class UNetTask:
         """None: the U-Net draws nothing."""
         return None
 
-    def train_loss(self, img, msk, generator=None, eps=None):
+    def train_loss(self, img, msk, generator=None, eps=None, share=None):
         """(loss, aux) of one batch in the net's current mode; ``generator``
-        and ``eps`` are unused (the U-Net draws nothing)."""
-        loss = self._loss(self.net(img), msk)
+        and ``eps`` are unused (the U-Net draws nothing). ``share``: this
+        rank's share of a batch split over the ranks (``ops/losses.py``)."""
+        loss = self._loss(self.net(img), msk, share)
         return loss, {"loss": loss.detach()}
 
     def predict(self, img, msk=None, generator=None, eps=None):
@@ -152,16 +153,17 @@ class ProbUNetTask:
         return torch.randn((n, self.net.prior.latent_dim), generator=generator,
                            device=generator.device)
 
-    def train_loss(self, img, msk, generator=None, eps=None):
+    def train_loss(self, img, msk, generator=None, eps=None, share=None):
         """−ELBO with z_q = posterior.sample: one forward of the three towers
         in the net's current mode, the draw decoded through the fcomb →
-        (loss, {"loss", "reconstruction_loss", "kl"})."""
+        (loss, {"loss", "reconstruction_loss", "kl"}); with ``share`` this
+        rank's share of each (``ops/losses.py``)."""
         out = self.net(img, msk.float())
         z_q = out.posterior.sample(generator, eps)
         logits = self.net.decode(out.unet_features, z_q)
         loss, aux = losses.elbo_loss(
             logits, msk, out.posterior, out.prior, self.beta, self.n_classes,
-            self.class_weights,
+            self.class_weights, share,
         )
         aux = {k: v.detach() for k, v in aux.items()}
         aux["loss"] = loss.detach()

@@ -97,12 +97,13 @@ def enable_nan_checks(enabled: bool = True):
 
 
 class StepTimer:
-    """Host-clock step times → seconds a step (median) and slices/s on the
-    one card the step runs on. The first step (kernel builds, cuDNN's
-    algorithm search) is not counted."""
+    """Host-clock step times → seconds a step (median) and slices/s a card
+    (``n_chips``: the cards one step spans). The first step (kernel builds,
+    cuDNN's algorithm search) is not counted."""
 
-    def __init__(self, slices_per_step: int):
+    def __init__(self, slices_per_step: int, n_chips: int = 1):
         self.slices_per_step = slices_per_step
+        self.n_chips = n_chips
         self._times: list[float] = []
         self._seen = 0
         self._t0 = None
@@ -123,7 +124,8 @@ class StepTimer:
 
     @property
     def slices_per_sec(self) -> float:
-        return self.slices_per_step / self.sec_per_step if self._times else float("nan")
+        return (self.slices_per_step / self.sec_per_step / self.n_chips if self._times
+                else float("nan"))
 
     def summary(self) -> dict:
         return {

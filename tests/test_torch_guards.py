@@ -49,7 +49,41 @@ def test_import_pulls_in_no_jax():
             "pmpu_tpu_torch.tools.profile_train", "pmpu_tpu_torch.serve",
             "pmpu_tpu_torch.visualize_sampling", "pmpu_tpu_torch.inference.uncertainty",
             "pmpu_tpu_torch.tools.soak_serve", "pmpu_tpu_torch.tools.ab_device_compute",
-            "pmpu_tpu_torch.utils.profiling"} <= set(MODULES)
+            "pmpu_tpu_torch.utils.profiling", "pmpu_tpu_torch.parallel",
+            "pmpu_tpu_torch.parallel.mesh", "pmpu_tpu_torch.parallel.hostdata",
+            "pmpu_tpu_torch.parallel.sharding"} <= set(MODULES)
+
+
+def test_parallel_imports_no_jax():
+    """``pmpu_tpu_torch.parallel`` alone, in a fresh interpreter: no jax,
+    no JAX package, no process group started."""
+    code = (
+        "import sys, pmpu_tpu_torch.parallel as p, torch.distributed as d\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'chex', 'ml_dtypes', 'pmpu_tpu'))\n"
+        "print(d.is_initialized(), p.init_distributed('cpu'), bad)\n"
+    )
+    assert _run(code).strip() == "False (0, 1) []"
+
+
+def test_resolve_device_names_a_card(monkeypatch):
+    """``cuda:N`` is accepted for a card that exists, raises without a card
+    or past the last one; ``local_device`` takes torchrun's LOCAL_RANK."""
+    import torch
+
+    from pmpu_tpu_torch.device import resolve_device
+    from pmpu_tpu_torch.parallel.mesh import local_device
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda:0")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert resolve_device("cuda:1") == torch.device("cuda", 1)
+    with pytest.raises(ValueError, match="there are 2 CUDA devices"):
+        resolve_device("cuda:2")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    assert local_device() == torch.device("cuda", 1)
+    assert local_device("cpu") == torch.device("cpu")
 
 
 def _imports(path):
@@ -105,6 +139,8 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_main(["-d", "no-such-dir"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_main(["-d", "no-such-dir", "--device", "cuda:0", "--data-parallel"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_net(Config(), VolumeStore.from_arrays(np.zeros((1, 4, 4, 4)), np.zeros((1, 4, 4, 4))))
     with pytest.raises(RuntimeError, match="no CUDA device"):

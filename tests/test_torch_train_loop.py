@@ -197,13 +197,16 @@ def test_train_cli(tmp_path, monkeypatch, capsys):
     assert payload["plateau"]["lr"] == 0.001 and payload["step"] > 0
 
 
-@pytest.mark.parametrize("flags,named", [
-    (["--sharded-volumes"], "--sharded-volumes"),
-    (["--async-checkpoints"], "--async-checkpoints"),
-    (["--async-checkpoints", "--sharded-volumes"], "--sharded-volumes, --async-checkpoints"),
-    (["--nan-checks", "--sharded-volumes"], r"ported\): --sharded-volumes$"),
+@pytest.mark.parametrize("flags,world,named", [
+    (["--async-checkpoints"], "1", "--async-checkpoints"),
+    (["--rss-limit-mb", "100", "--data-parallel"], "2", "--rss-limit-mb in a world of 2 ranks"),
+    (["--rss-limit-mb", "1", "--async-checkpoints"], "2",
+     "--async-checkpoints, --rss-limit-mb in a world of 2 ranks"),
+    (["--nan-checks", "--async-checkpoints"], "1", r"ported\): --async-checkpoints$"),
 ])
-def test_train_cli_refuses_unported_flags(flags, named):
+def test_train_cli_refuses_unported_flags(flags, world, named, monkeypatch):
+    """Refused before the CLI joins a world (``WORLD_SIZE`` is torchrun's)."""
+    monkeypatch.setenv("WORLD_SIZE", world)
     with pytest.raises(NotImplementedError, match=named):
         train_main(["-d", "no-such-dir", "--device", "cpu", *flags])
 
@@ -211,7 +214,7 @@ def test_train_cli_refuses_unported_flags(flags, named):
 @pytest.mark.parametrize("flags", [
     ["--augment", "--elastic-alpha", "4"], ["--stream"], ["--num-views", "6"],
     ["--num-views", "6", "--no-view-stacks"], ["--remat"], ["--rss-limit-mb", "100"],
-    ["--nan-checks"],
+    ["--nan-checks"], ["--sharded-volumes"], ["--data-parallel"],
 ])
 def test_train_cli_accepts_ported_flags(flags):
     """Flags ported since the first training slice pass ``check_ported``:

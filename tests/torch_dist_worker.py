@@ -1,0 +1,206 @@
+"""The ranks of a CPU world (gloo) for the port's multi-process tests
+(``tests/test_torch_parallel.py``, ``tests/test_torch_hostdata.py``).
+
+    python -m tests.torch_dist_worker WORLD IODIR
+
+``IODIR/cases.pkl`` holds a list of cases (dicts with a ``kind``). WORLD
+processes, started by ``pmpu_tpu_torch.parallel.spawn_world`` on a free
+port, join one world and run the cases in order; rank r writes
+``IODIR/rank{r}.pkl``, one result a case. Imports torch and the port only.
+"""
+
+import os
+import pickle
+import subprocess
+import sys
+
+import torch
+
+
+def _task(case):
+    from pmpu_tpu_torch.train.tasks import make_task
+
+    task = make_task(case["name"], **case["kw"], device="cpu", train=True, seed=0)
+    if "state_dict" in case:
+        task.net.load_state_dict({k: torch.from_numpy(v) for k, v in case["state_dict"].items()})
+    return task
+
+
+def _state_np(net):
+    return {k: v.detach().numpy().copy() for k, v in net.state_dict().items()}
+
+
+def _block(a, rank, size):
+    n = len(a) // size
+    return a[rank * n:(rank + 1) * n]
+
+
+def run_step(case, rank, size):
+    """Train steps of mode ``dp``, ``hostlocal`` or ``plain`` (the
+    one-process step) from a state_dict; per step its metrics, then the
+    state_dict and the momentum buffers."""
+    from pmpu_tpu_torch.data import sampler as sm
+    from pmpu_tpu_torch.data.augment import AugmentConfig
+    from pmpu_tpu_torch.parallel import make_dp_train_step, make_hostlocal_dp_train_step, make_mesh
+    from pmpu_tpu_torch.train import steps
+
+    task = _task(case)
+    state = steps.create_train_state(task, momentum=0.9, seed=case.get("seed", 0))
+    sampler = sm.sample_batch_vt if case.get("layout") == "vt" else sm.sample_batch
+    aug = AugmentConfig(elastic_alpha=4.0) if case.get("augment") else None
+    mode, acc = case["mode"], case["acc"]
+    images, labels = case["images"], case["labels"]
+    if mode == "dp":
+        step = make_dp_train_step(task, make_mesh(), acc_steps=acc, sampler=sampler, augment=aug)
+    elif mode == "hostlocal":
+        step = make_hostlocal_dp_train_step(task, make_mesh(), acc_steps=acc, augment=aug)
+        images, labels = _block(images, rank, size), _block(labels, rank, size)
+    else:
+        step = steps.make_train_step(task, acc_steps=acc, sampler=sampler, augment=aug)
+    ti, tl = torch.from_numpy(images), torch.from_numpy(labels)
+    metrics = []
+    for k, lr in enumerate(case["lrs"]):
+        triples = case["triples"][k]
+        eps = case["eps"][k] if case.get("eps") is not None else None
+        if mode == "hostlocal":
+            triples = _block(triples, rank, size)
+            eps = None if eps is None else eps[rank]
+        state, m = step(state, ti, tl, torch.from_numpy(triples), lr,
+                        None if eps is None else torch.from_numpy(eps))
+        metrics.append({key: float(v) for key, v in m.items()})
+    names = {p: n for n, p in task.net.named_parameters()}
+    momentum = {names[p]: s["momentum_buffer"].numpy().copy()
+                for p, s in state.optimizer.state.items()}
+    return {"metrics": metrics, "state": _state_np(task.net), "momentum": momentum,
+            "generator": state.generator.get_state().numpy()}
+
+
+def run_eval(case, rank, size):
+    """The host-local eval step on this rank's block; eps the pair of this
+    rank (probunet)."""
+    from pmpu_tpu_torch.parallel import make_hostlocal_eval_step, make_mesh
+    from pmpu_tpu_torch.train import steps
+
+    task = _task(case)
+    state = steps.create_train_state(task)
+    step = make_hostlocal_eval_step(task, make_mesh())
+    eps = case.get("eps")
+    eps = None if eps is None else tuple(torch.from_numpy(e) for e in eps[rank])
+    loss, dice, preds, _, _ = step(
+        state, torch.from_numpy(_block(case["images"], rank, size)),
+        torch.from_numpy(_block(case["labels"], rank, size)),
+        torch.from_numpy(_block(case["triples"], rank, size)), case["weights"][rank], eps)
+    return {"loss": float(loss), "dice": dice.numpy(), "preds": preds.numpy()}
+
+
+def run_train_net(case, rank, size):
+    """``train_net`` on the arrays of the case in its working directory:
+    the history, the steps run, the final variables (flax layout) and the
+    checkpoint paths this rank wrote; or the error or interrupt it
+    raised. ``interrupt``: (rank, n) sets that rank's interrupt flag from
+    its n-th poll on."""
+    from pmpu_tpu_torch.config import Config
+    from pmpu_tpu_torch.data.volumes import VolumeStore
+    from pmpu_tpu_torch.train import checkpoint as ckpt
+    from pmpu_tpu_torch.train import loop, steps
+
+    os.makedirs(case["cwd"], exist_ok=True)
+    os.chdir(case["cwd"])
+    written, polls, steps_run = [], [0], [0]
+    save = ckpt.save_checkpoint
+
+    def recording_save(path, *a, **kw):
+        written.append(path)
+        return save(path, *a, **kw)
+
+    make = steps.make_train_step
+
+    def counting_make(*a, **kw):
+        step = make(*a, **kw)
+
+        def counted(*sa, **skw):
+            steps_run[0] += 1
+            return step(*sa, **skw)
+
+        return counted
+
+    flag = None
+    if case.get("interrupt") is not None and case["interrupt"][0] == rank:
+        def flag():
+            polls[0] += 1
+            return polls[0] >= case["interrupt"][1]
+
+    ckpt.save_checkpoint, steps.make_train_step = recording_save, counting_make
+    # the factories of parallel/sharding.py and of the loop call make_train_step
+    # through these module attributes
+    import pmpu_tpu_torch.parallel.sharding as sharding
+
+    sharding.make_train_step, loop.make_train_step = counting_make, counting_make
+    out = {"written": written}
+    try:
+        _, task, history = loop.train_net(Config(**case["cfg"]),
+                                          VolumeStore.from_arrays(*case["data"]),
+                                          interrupt_flag=flag, device="cpu")
+        out.update(history=history, variables=ckpt.flax_variables(task.net))
+    except KeyboardInterrupt:
+        out["interrupted"] = True
+    except (ValueError, NotImplementedError) as e:
+        out["error"] = f"{type(e).__name__}: {e}"
+    finally:
+        ckpt.save_checkpoint = save
+        steps.make_train_step = sharding.make_train_step = loop.make_train_step = make
+    out["steps"] = steps_run[0]
+    return out
+
+
+def run_global_batch(case, rank, size):
+    from pmpu_tpu_torch.parallel import make_global_batch
+
+    return make_global_batch(case["rows"][rank])
+
+
+KINDS = {"step": run_step, "eval": run_eval, "train_net": run_train_net,
+         "global_batch": run_global_batch}
+
+
+def run_world(world, cases, iodir, timeout=240):
+    """Run ``cases`` in a CPU world of ``world`` ranks (a subprocess of this
+    module, ended at ``timeout`` seconds); the ranks' result lists."""
+    os.makedirs(iodir, exist_ok=True)
+    with open(os.path.join(iodir, "cases.pkl"), "wb") as f:
+        pickle.dump(cases, f)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env["OMP_NUM_THREADS"] = "1"
+    proc = subprocess.run([sys.executable, "-m", "tests.torch_dist_worker", str(world),
+                           str(iodir)], cwd=root, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    assert proc.returncode == 0, proc.stderr[-6000:]
+    out = []
+    for r in range(world):
+        with open(os.path.join(iodir, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def run(iodir):
+    import torch.distributed as dist
+
+    from pmpu_tpu_torch.parallel import init_distributed
+
+    torch.set_num_threads(1)
+    sys.modules["torch.utils.tensorboard"] = None  # the writer's in-memory fallback
+    rank, size = init_distributed("cpu")
+    with open(os.path.join(iodir, "cases.pkl"), "rb") as f:
+        cases = pickle.load(f)
+    results = [KINDS[c["kind"]](c, rank, size) for c in cases]
+    with open(os.path.join(iodir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(results, f)
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    from pmpu_tpu_torch.parallel import spawn_world
+
+    spawn_world(run, int(sys.argv[1]), (os.path.abspath(sys.argv[2]),))
