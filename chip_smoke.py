@@ -225,6 +225,41 @@ Phases, each printing at least one line; any failure exits non-zero:
              ``train_dp_launches_per_step`` per rank (a, b) and
              ``train_dp_loop_world2_launches`` (b's ``train_net``).
 
+14. eval, multi-device — the slice-parallel evaluator and the last tools:
+             (a) a world of 2 processes sharing the card under gloo (NCCL
+             refuses two ranks on one device), phase 9's model (probunet
+             64..1024, bf16, 5 samples) and 3 labeled scans:
+             ``evaluate_store`` at depth 2 (3 chunks of 128 split 2/1), with
+             ``quantize="int8"`` (this process's scale file) and with 6 views
+             on 2 scans, ``evaluate_store_batched`` at V = 2, ``ged_volume``
+             with 4 draws; every report, GED value, argmax and entropy export
+             bit-equal to this process's one-process runs under cuDNN's
+             deterministic algorithms; each kernel's launches a volume on each
+             rank (the chunk kernels summing to one process's count, the
+             gather and the oblique planes whole on each rank); s/volume of
+             each side, each timed with nothing else on the card, labelled
+             as not a multi-card speed; (b) ``python -m
+             torch.distributed.run --nproc-per-node 1 -m pmpu_tpu_torch.eval
+             --data-parallel`` (its report within 1e-6 of phase 9's
+             in-process one) and ``pmpu_tpu_torch.eval.main`` in (a)'s world
+             (rank 0's report and GED line equal, ``predictions/`` and the
+             uncertainty maps written once, byte-equal); (c) the train CLI
+             with ``--rss-limit-mb 1 -e 2`` under torchrun on the card (NCCL,
+             one re-exec into a fresh rendezvous, both epochs, rank 0's
+             checkpoints, the model evaluated) and in a CPU world of 2 (each
+             rank re-executed once, equal losses); (d) ``tools.
+             compare_with_reference`` weight parity at full width in f32 on
+             one 128³ volume (argmax agreement ≥ 99.9 %), its ``--train
+             --task landmark`` at filters 16,32, cube 32, 10 epochs of the
+             converged protocol (batch 4, lr 0.02, patience 10: PASS),
+             and ``tools.soak_stream_train`` for 1 minute at full width with
+             ``--rss-limit-mb 1`` (re-execs, SIGTERM: rc 0 and
+             ``INTERRUPTED.pth``; its creep in MB/min); (e) with 2 cards, (a)
+             under NCCL across them and the eval CLI with
+             ``--nproc-per-node 2``, else one line saying why not. The
+             kernels line gives each kernel's ``eval_dp_launches_per_volume``
+             by path, per rank.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--json PATH`` also writes
 all measurements to PATH.
@@ -1691,7 +1726,8 @@ def phase_eval(card, task):
             "batched_argmax_agreement": bat_agree, "peaks": peaks,
             "split_fused_max_abs_diff": split_diff, "split_argmax_agreement": split_agree,
             "split_backbone_prior_ms": split_ms, "cli_report_diff": cli_diff,
-            "cli_wall_s": walls, "store_load_s": load_s, "ged_line": ged}
+            "cli_wall_s": walls, "store_load_s": load_s, "ged_line": ged,
+            "report": want}
 
 
 def labeled_scans(n, cube, seed, block=None):
@@ -3451,6 +3487,464 @@ def phase_train_dist(card, dev="cuda", cube=128, width=None):
     return out
 
 
+EVAL_DIST_PATHS = ("store", "int8", "views6", "batched", "ged")
+# the kernels that run on every rank's share of the chunks (summed over the
+# ranks, one process's count) and those that every rank runs whole
+SPLIT_KERNELS = ("fcomb_mean_decode", "fused_qchain_stripes", "fused_qchain_whole_image")
+WHOLE_KERNELS = ("gather_normalize_planes", "oblique_planes")
+
+
+def eval_dist_runs(task, store, out_dir, scales, mesh, dev) -> dict:
+    """Phase 14 (a)'s runs of one side, the in-process one (``mesh`` None)
+    or a rank of the world: ``evaluate_store`` at depth 2 on the 3 scans,
+    with ``quantize="int8"`` (the scale file ``scales``) and with 6 views on
+    the first 2, ``evaluate_store_batched`` at V = 2, ``ged_volume`` with 4
+    draws; exports and entropy maps under ``out_dir/{path}`` (rank 0 alone
+    writes). Each path: its value, s a volume and each kernel's launches a
+    volume, counted from 0."""
+    from pmpu_tpu_torch import VolumeEvaluator
+    from pmpu_tpu_torch.data.volumes import VolumeStore
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    two = VolumeStore.from_arrays(np.stack([store.images[i] for i in range(2)]),
+                                  np.stack([store.labels[i] for i in range(2)]))
+    evs = {"store": VolumeEvaluator(task, n_samples=5, device=dev, mesh=mesh),
+           "int8": VolumeEvaluator(task, n_samples=5, quantize="int8", calibration=scales,
+                                   device=dev, mesh=mesh),
+           "views6": VolumeEvaluator(task, n_samples=5, num_views=6, device=dev, mesh=mesh)}
+    for ev in evs.values():  # cuDNN's and the kernels' first calls, the int8 tree
+        ev.evaluate_volume(store.images[0], seed=1, return_views=False)
+    evs["batched"] = evs["ged"] = evs["store"]
+    res = {}
+    for path in EVAL_DIST_PATHS:
+        ev = evs[path]
+        dirs = [os.path.join(out_dir, path, k) for k in ("pred", "unc")]
+        reset_kernel_counts()
+        sync()
+        t0 = time.perf_counter()
+        if path == "ged":
+            value, n = ev.ged_volume(store.images[0], store.labels[0], 4, seed=EVAL_SEED), 1
+        elif path == "batched":
+            value = ev.evaluate_store_batched(store, EVAL_SEED, *dirs, volumes_per_batch=2)
+            n = len(store)
+        else:
+            s = store if path == "store" else two
+            value, n = ev.evaluate_store(s, EVAL_SEED, *dirs), len(s)
+        sync()
+        secs = time.perf_counter() - t0
+        res[path] = {"value": value, "s_per_volume": secs / n,
+                     "launches_per_volume": {k: c / n for k, c in kernel_counts().items()}}
+    return res
+
+
+def eval_dist_worker(out_dir, backend, data, ckpt, scales, width, cli_argv, dev_type="cuda"):
+    """One rank of phase 14 (a) and (b): gloo, both ranks on cuda:0 (or
+    NCCL, rank r on cuda:r; or the CPU rehearsal): :func:`eval_dist_runs`
+    with a mesh of the world under cuDNN's deterministic algorithms, then
+    ``pmpu_tpu_torch.eval.main(cli_argv)`` in this world (cuDNN's default,
+    as the CLI runs), its stdout and launches. Writes ``rank{r}.pt``."""
+    import io
+
+    import torch.distributed as dist
+
+    from pmpu_tpu_torch import make_task
+    from pmpu_tpu_torch.data.volumes import VolumeStore
+    from pmpu_tpu_torch.eval import main as eval_main
+    from pmpu_tpu_torch.parallel import make_mesh
+
+    rank, size = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    cuda = dev_type == "cuda"
+    dev = torch.device("cuda", rank if backend == "nccl" else 0) if cuda else torch.device("cpu")
+    if cuda:
+        torch.cuda.set_device(dev)
+        os.environ["LOCAL_RANK"] = str(dev.index)  # the eval CLI binds cuda:{LOCAL_RANK}
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{os.environ['MASTER_PORT']}",
+                            rank=rank, world_size=size)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        task = make_task("probunet", num_filters=width, dtype=torch.bfloat16 if cuda else None,
+                         device=dev, seed=0)
+        task.net.load_state_dict(torch.load(ckpt, map_location=dev))
+        store = VolumeStore.from_dirs(os.path.join(data, "images"), os.path.join(data, "labels"))
+        torch.backends.cudnn.deterministic = True
+        t0 = time.perf_counter()
+        runs = eval_dist_runs(task, store, os.path.join(out_dir, "a"), scales, make_mesh(), dev)
+        out = {"backend": dist.get_backend(), "a": runs, "a_wall_s": time.perf_counter() - t0}
+        del task
+        torch.backends.cudnn.deterministic = False
+        cwd = os.path.join(out_dir, "cli")
+        os.makedirs(cwd, exist_ok=True)
+        here = os.getcwd()
+        os.chdir(cwd)
+        buf = io.StringIO()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = eval_main(cli_argv)
+        finally:
+            os.chdir(here)
+        out["cli"] = {"rc": rc, "stdout": buf.getvalue(), "launches": kernel_counts(),
+                      "s": time.perf_counter() - t0}
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def same_value(a, b) -> bool:
+    """Bit-equality of two reports (dicts of arrays) or two GED floats."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_value(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(same_value(x, y) for x, y in zip(a, b))
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def tree_bytes(d) -> dict:
+    """{relative path: bytes} of every file under ``d``."""
+    out = {}
+    for root, _, files in os.walk(d):
+        for f in files:
+            p = os.path.join(root, f)
+            with open(p, "rb") as fh:
+                out[os.path.relpath(p, d)] = fh.read()
+    return out
+
+
+def epoch_lines(log: str) -> dict:
+    """{epoch: {rank: (train loss, val loss)}} of the train loop's epoch lines."""
+    import re
+
+    out = {}
+    for m in re.finditer(r"epoch (\d+)/\d+ done \(.*; train loss (\S+), val loss (\S+); "
+                         r"rank (\d+) of \d+\)", log):
+        out.setdefault(int(m[1]), {})[int(m[4])] = (m[2], m[3])
+    return out
+
+
+def phase_eval_dist(card, state_dict, phase9_report=None, dev="cuda", width=None):
+    """Phase 14: evaluation and tools over ranks (see the module docstring).
+    ``state_dict``: phase 9's model; ``phase9_report``: its in-process
+    ``evaluate_store`` report, which (b)'s CLI in a world of 1 must equal.
+    ``dev`` ``"cpu"`` rehearses it without a card at ``width`` (tools and
+    training CLIs at the test suite's sizes)."""
+    import re
+
+    from pmpu_tpu_torch import VolumeEvaluator, make_task
+    from pmpu_tpu_torch.config import Config
+    from pmpu_tpu_torch.data import nifti
+    from pmpu_tpu_torch.data.volumes import VolumeStore
+    from pmpu_tpu_torch.parallel import spawn_world
+    from pmpu_tpu_torch.tools import compare_with_reference as cwr
+    from pmpu_tpu_torch.train.checkpoint import load_for_inference
+
+    width = FULL_WIDTH if width is None else tuple(width)
+    cuda = dev == "cuda"
+    device = torch.device(dev)
+    print("phase 14: evaluation and tools over ranks")
+    t_phase = time.perf_counter()
+    out = {}
+    tmp = tempfile.TemporaryDirectory()
+    d = tmp.name
+    procs = {}
+    try:
+        data = os.path.join(d, "data")
+        write_labeled_scans(data)
+        ckpt = os.path.join(d, "probunet.pt")
+        torch.save(state_dict, ckpt)
+        names = sorted(os.listdir(os.path.join(data, "images")))
+        env = {k: v for k, v in os.environ.items() if k not in DIST_KEYS}
+        env["PYTHONPATH"] = os.pathsep.join([ROOT] + [p for p in [env.get("PYTHONPATH")] if p])
+
+        def launch(name, args, cwd=None, extra_env=None):
+            cwd = cwd or os.path.join(d, name)
+            os.makedirs(cwd, exist_ok=True)
+            log = open(os.path.join(d, f"{name}.log"), "w")
+            # a session of its own: torchrun's workers and the soak's child
+            # are ended with it
+            procs[name] = (subprocess.Popen([sys.executable, *args], cwd=cwd,
+                                            env={**env, **(extra_env or {})}, stdout=log,
+                                            stderr=subprocess.STDOUT, text=True,
+                                            start_new_session=True),
+                           log, time.perf_counter())
+
+        def finish(name, timeout=600):
+            proc, log, t0 = procs[name]
+            try:
+                proc.wait(timeout=timeout)
+            finally:
+                log.close()
+            with open(log.name) as f:
+                text = f.read()
+            require(proc.returncode == 0, f"phase 14 {name}: exited {proc.returncode}:\n"
+                                          f"{text[-4000:]}")
+            return text, time.perf_counter() - t0
+
+        # (a) the one-process references in this process, under cuDNN's
+        # deterministic algorithms (the int8 scale file written first)
+        task = make_task("probunet", num_filters=width, dtype=torch.bfloat16 if cuda else None,
+                         device=dev, seed=0)
+        task.net.load_state_dict(state_dict)
+        store = VolumeStore.from_dirs(os.path.join(data, "images"), os.path.join(data, "labels"))
+        scales = os.path.join(d, "scales.json")
+        VolumeEvaluator(task, quantize="int8", calibration=scales,
+                        device=dev)._maybe_quantize(sample_vol=store.images[0])
+        det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            t0 = time.perf_counter()
+            ref = eval_dist_runs(task, store, os.path.join(d, "ref"), scales, None, device)
+            ref_wall = time.perf_counter() - t0
+        finally:
+            torch.backends.cudnn.deterministic = det
+        del task
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # (a) and (b) in a world of 2 (gloo, both ranks on cuda:0), with nothing
+        # else on the card, as the one-process references had
+        cli_flags = ["-m", "probunet", "-f", ckpt, "-d", data, "--seed", str(EVAL_SEED),
+                     "--num-filters", ",".join(map(str, width)), "--save-uncertainty", "unc",
+                     "--ged", "2", "--data-parallel", "--device", dev,
+                     *(["--bf16"] if cuda else [])]
+        wdir = os.path.join(d, "world")
+        os.makedirs(wdir)
+        t_world = time.perf_counter()
+        spawn_world(eval_dist_worker, 2, (wdir, "gloo", data, ckpt, scales, width, cli_flags, dev))
+        world_s = time.perf_counter() - t_world
+
+        # (c) and (d)'s processes, started once (a) is timed: they run beside
+        # (b)'s eval CLI in a world of 1 and the weight-parity tool
+        train_data = os.path.join(d, "train_data")
+        cube_c = 128 if cuda else 16
+        cimg, clbl = labeled_scans(4, cube_c, seed=DIST_SEED + 7,
+                                   block=(cube_c // 2 - 5, cube_c // 2 + 6))
+        for i in range(4):
+            nifti.save(os.path.join(train_data, "images", f"scan{i}.nii"), cimg[i])
+            nifti.save(os.path.join(train_data, "labels", f"scan{i}.nii"),
+                       clbl[i].astype(np.float32))
+        small_data = os.path.join(d, "small_data")
+        simg, slbl = labeled_scans(2, 16, seed=DIST_SEED + 8, block=(4, 12))
+        for i in range(2):
+            nifti.save(os.path.join(small_data, "images", f"scan{i}.nii"), simg[i])
+            nifti.save(os.path.join(small_data, "labels", f"scan{i}.nii"),
+                       slbl[i].astype(np.float32))
+        run = ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node"]
+        rss_card = ["-m", "pmpu_tpu_torch.train", "-m", "probunet", "-d", train_data,
+                    "--num-filters", ",".join(map(str, width)), "-b", "8", "-e", "2",
+                    "--train-views", "0", "--device", dev, "--rss-limit-mb", "1",
+                    "--checkpoint-dir", "ck", *(["--bf16"] if cuda else [])]
+        launch("rss_card", [*run, "1", *rss_card])
+        launch("rss_cpu_world2", [*run, "2", "-m", "pmpu_tpu_torch.train", "-m", "unet", "-d",
+                                  small_data, "--num-filters", "4,8", "-e", "2", "-b", "4",
+                                  "--train-views", "0", "--data-parallel", "--device", "cpu",
+                                  "--rss-limit-mb", "1", "--checkpoint-dir", "ck"],
+               extra_env={"OMP_NUM_THREADS": "1"})
+        soak_flags = (["--minutes", "1"] if cuda else
+                      ["--cpu", "--minutes", "1", "--cube", "16", "--volumes", "2",
+                       "--filters", "4,8", "--batch", "4", "--sample-every", "0.5"])
+        launch("soak", ["-m", "pmpu_tpu_torch.tools.soak_stream_train", *soak_flags,
+                        "--rss-limit-mb", "1", "--data", os.path.join(d, "soak", "data"),
+                        "--out", os.path.join(d, "soak", "rss.csv")])
+        # the converged protocol of the head-to-head (batch 4, lr 0.02): the
+        # 0.5-point criterion speaks of converged quality; at the reference's
+        # defaults (batch 2, lr 1e-3) 10 epochs stop mid-convergence, where two
+        # random streams differ by more. The tool trains both sides with
+        # cuDNN's deterministic algorithms, so this seed's reading repeats
+        train_flags = ["-e", "10", "-b", "4", "-l", "0.02", "-p", "10",
+                       *(["--filters", "16,32", "--cube", "32"] if cuda else
+                         ["--filters", "4,8", "--cube", "16", "--n-train", "6", "--device",
+                          "cpu"])]
+        launch("compare_train", ["-m", "pmpu_tpu_torch.tools.compare_with_reference", "--train",
+                                 "--task", "landmark", *train_flags])
+
+        launch("eval_cli_world1", [*run, "1", "-m", "pmpu_tpu_torch.eval", *cli_flags])
+        pargs = cwr.parser().parse_args(
+            ["--model", "probunet", "--filters", ",".join(map(str, width)), "--cube",
+             "128" if cuda else "24", "--device", dev])
+        (parity,) = cwr.weight_parity(pargs)
+        cli1, cli1_s = finish("eval_cli_world1")
+        ranks = [torch.load(os.path.join(wdir, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+
+        # (a): every path bit-equal on both ranks, rank 0's exports byte-equal
+        launches = {}
+        for path in EVAL_DIST_PATHS:
+            for r, res in enumerate(ranks):
+                require(same_value(res["a"][path]["value"], ref[path]["value"]),
+                        f"phase 14 (a) {path}: rank {r}'s result differs from one process's")
+            if path != "ged":
+                for sub in ("pred", "unc"):
+                    got = tree_bytes(os.path.join(wdir, "a", path, sub))
+                    want = tree_bytes(os.path.join(d, "ref", path, sub))
+                    require(len(want) and got == want,
+                            f"phase 14 (a) {path}/{sub}: rank 0's files differ from one "
+                            f"process's ({sorted(got)} vs {sorted(want)})")
+            per_rank = [res["a"][path]["launches_per_volume"] for res in ranks]
+            one = ref[path]["launches_per_volume"]
+            launches[path] = {k: [c[k] for c in per_rank] for k in one}
+            if cuda:
+                for k in SPLIT_KERNELS:
+                    require(abs(sum(c[k] for c in per_rank) - one[k]) < 1e-9,
+                            f"phase 14 (a) {path}: {k} launches a volume {launches[path][k]} "
+                            f"do not sum to one process's {one[k]}")
+                for k in WHOLE_KERNELS:
+                    require(all(c[k] == one[k] for c in per_rank),
+                            f"phase 14 (a) {path}: {k} launches a volume {launches[path][k]}, "
+                            f"one process's {one[k]} on each rank")
+                ran = [k for k, c in one.items() if c]
+                require(ran and all(any(c[k] for c in per_rank) for k in ran),
+                        f"phase 14 (a) {path}: launches {launches[path]}")
+        s_vol = {p: {"world2": [res["a"][p]["s_per_volume"] for res in ranks],
+                     "one_process": ref[p]["s_per_volume"]} for p in EVAL_DIST_PATHS}
+        out["a"] = {"launches_per_volume": launches, "s_per_volume": s_vol,
+                    "ref_wall_s": ref_wall, "world_wall_s": world_s,
+                    "ged": ref["ged"]["value"], "fused_dice": ref["store"]["value"]["fused"].tolist()}
+        label = ("gloo through the host, one card: not a multi-card speed" if cuda
+                 else "CPU rehearsal")
+        print(f"  [{card}] (a) a world of 2 ({ranks[0]['backend']}, both ranks on {dev}), probunet "
+              f"{','.join(map(str, width))}, 5 samples, 3 labeled scans: evaluate_store at depth "
+              f"2 (3 views), int8 (the in-process scale file) and 6 views on 2 scans, "
+              f"evaluate_store_batched at V = 2, ged_volume with 4 draws: every report, GED and "
+              f"export bit-equal to one process under cuDNN's deterministic algorithms "
+              f"(GED {ref['ged']['value']:.6f}); launches a volume on each rank {launches}")
+        print(f"  [{card}] (a) s/volume, 2 ranks (each) beside one process, each timed with "
+              f"nothing else on the card ({label}): "
+              f"{ {p: ([round(x, 4) for x in v['world2']], round(v['one_process'], 4)) for p, v in s_vol.items()} }")
+
+        # (b) the eval CLI: in a world of 1 under torchrun, and main() in (a)'s world
+        def report_part(stdout):
+            return [ln for ln in stdout.splitlines()
+                    if re.match(REPORT_LINE, ln.strip()) or ln.startswith("GED^2")]
+
+        want_report = phase9_report if phase9_report is not None else report_lines(
+            ref["store"]["value"])
+        cli1_diff = report_diff(parse_report(cli1), want_report)
+        require(cli1_diff <= 1e-6, f"phase 14 (b): the eval CLI in a world of 1 differs from "
+                                   f"the in-process report by {cli1_diff}")
+        c0, c1 = (res["cli"] for res in ranks)
+        require(c0["rc"] == 0 and c1["rc"] == 0 and c1["stdout"] == "",
+                f"phase 14 (b) eval.main in a world of 2: rc {c0['rc']}, {c1['rc']}; rank 1 "
+                f"printed {c1['stdout'][:500]!r}")
+        require(report_part(c0["stdout"]) == report_part(cli1) and len(report_part(cli1)) == 5,
+                f"phase 14 (b): rank 0's report {report_part(c0['stdout'])} is not the world of "
+                f"1's {report_part(cli1)}")
+        one_dir = os.path.join(d, "eval_cli_world1")
+        for sub in ("predictions", "unc"):
+            got, want = tree_bytes(os.path.join(wdir, "cli", sub)), tree_bytes(
+                os.path.join(one_dir, sub))
+            require(sorted(want) == names and got == want,
+                    f"phase 14 (b) {sub}: the world of 2's files differ from one process's")
+        require(sorted(os.listdir(os.path.join(wdir, "cli"))) == ["predictions", "unc"],
+                f"phase 14 (b): the world of 2 wrote {os.listdir(os.path.join(wdir, 'cli'))}")
+        cli_launches = [res["cli"]["launches"] for res in ranks]
+        out["b"] = {"report_diff_world1": cli1_diff, "world1_s": cli1_s,
+                    "world2_s": [res["cli"]["s"] for res in ranks], "launches": cli_launches}
+        print(f"  [{card}] (b) python -m torch.distributed.run --nproc-per-node 1 -m "
+              f"pmpu_tpu_torch.eval --data-parallel: report within {cli1_diff:.3g} of phase 9's "
+              f"in-process one ({cli1_s:.1f} s, process start included); eval.main in (a)'s "
+              f"world of 2: rank 0's report and GED line equal to it, predictions/ and unc/ "
+              f"written once, byte-equal ({[round(x, 1) for x in out['b']['world2_s']]} s); "
+              f"launches on each rank {cli_launches}")
+
+        # (d) weight parity, in this process beside (b)'s eval CLI, (c) and (d)
+        require(parity["argmax_agreement"] >= 0.999,
+                f"phase 14 (d) compare_with_reference: argmax agreement "
+                f"{parity['argmax_agreement']}")
+        out["d"] = {"parity": parity}
+        print(f"  [{card}] (d) compare_with_reference, probunet {','.join(map(str, width))} f32, "
+              f"prior mean, one {pargs.cube}³ volume: max |Δprob| "
+              f"{parity['max_abs_prob_diff']:.3g}, argmax agreement "
+              f"{100 * parity['argmax_agreement']:.4f} %, wall reference loop "
+              f"{parity['wall_ref_s']:.2f} s, the port's engine {parity['wall_ours_s']:.3f} s")
+
+        # (c) --rss-limit-mb 1 in a world
+        log, rss_s = finish("rss_card")
+        ck = os.path.join(d, "rss_card", "ck")
+        written = sorted(os.listdir(ck))
+        epochs = epoch_lines(log)
+        require(log.count("re-exec for bounded RSS") == 1 and sorted(epochs) == [1, 2]
+                and written == ["probunet_checkpoint0.pt", "probunet_checkpoint1.pt",
+                                "probunet_model.pt", "probunet_rss_resume.pt"],
+                f"phase 14 (c) on the card: wrote {written}, epochs {epochs}:\n{log[-3000:]}")
+        task, _ = load_for_inference(os.path.join(ck, "probunet_model.pt"), Config(), device=dev)
+        r = VolumeEvaluator(task, device=dev).evaluate_volume(cimg[0], clbl[0])
+        require(bool(torch.isfinite(r["fused"]).all()), "phase 14 (c): the model's evaluation")
+        del task
+        log2, rss2_s = finish("rss_cpu_world2")
+        epochs2 = epoch_lines(log2)
+        execs = [log2.count(f"(rank {k}) against --rss-limit-mb 1 after epoch 1") for k in (0, 1)]
+        written2 = sorted(os.listdir(os.path.join(d, "rss_cpu_world2", "ck")))
+        require(execs == [1, 1] and log2.count("re-exec for bounded RSS") == 2
+                and sorted(epochs2) == [1, 2]
+                and all(sorted(e) == [0, 1] and e[0] == e[1] for e in epochs2.values())
+                and written2 == ["unet_checkpoint0.pt", "unet_checkpoint1.pt", "unet_model.pt",
+                                 "unet_rss_resume.pt"],
+                f"phase 14 (c) a CPU world of 2: re-execs {execs}, epochs {epochs2}, wrote "
+                f"{written2}:\n{log2[-3000:]}")
+        out["c"] = {"card_s": rss_s, "cpu_world2_s": rss2_s, "card_epochs": epochs,
+                    "cpu_epochs": epochs2, "dice": r["dice"].tolist()}
+        print(f"  [{card}] (c) --rss-limit-mb 1 -e 2: the train CLI under torch.distributed.run "
+              f"--nproc-per-node 1 ({'NCCL' if cuda else 'gloo'}, {','.join(map(str, width))}): "
+              f"one re-exec into a fresh rendezvous, epochs {epochs}, rank 0 wrote {written}, the "
+              f"model evaluated (Dice {np.round(r['dice'][-1], 4).tolist()}), {rss_s:.1f} s; a "
+              f"CPU world of 2 (gloo, unet 4,8): each rank re-executed once, equal losses "
+              f"{epochs2}, {rss2_s:.1f} s")
+
+        # (d) the tools' processes
+        text, cmp_s = finish("compare_train", timeout=900)
+        require("PASS - trained val Dice within" in text,
+                f"phase 14 (d) compare_with_reference --train:\n{text[-3000:]}")
+        head = [ln.strip() for ln in text.splitlines()
+                if ln.startswith(("reference fused", "pmpu_tpu_torch fused", "|delta|",
+                                  "train wall"))]
+        text, soak_s = finish("soak", timeout=900)
+        line = [ln for ln in text.splitlines() if ln.startswith("SOAK ")]
+        require(line, f"phase 14 (d) soak_stream_train: no summary:\n{text[-3000:]}")
+        soak = json.loads(line[-1][len("SOAK "):])
+        require(soak["exit_code"] == 0 and soak["reexecs"] >= 1
+                and soak["sigterm_interrupted_save"],
+                f"phase 14 (d) soak_stream_train: {soak}")
+        out["d"].update(train=head, train_s=cmp_s, soak=soak, soak_s=soak_s)
+        print(f"  [{card}] (d) compare_with_reference --train --task landmark "
+              f"{' '.join(train_flags)}: PASS; {head}; {cmp_s:.1f} s")
+        print(f"  [{card}] (d) soak_stream_train {' '.join(soak_flags)} --rss-limit-mb 1: "
+              f"creep {soak['creep_mb_per_min_tail']} MB/min, RSS {soak['rss_min_mb']}–"
+              f"{soak['rss_max_mb']} MB, {soak['epochs_done']} epochs, {soak['reexecs']} "
+              f"re-execs, SIGTERM: rc {soak['exit_code']} with INTERRUPTED.pth; {soak_s:.1f} s")
+
+        n_cards = torch.cuda.device_count() if cuda else 0
+        if n_cards < 2:
+            print(f"  (e) not run: {n_cards} CUDA device(s) here; (a) under NCCL across two "
+                  "cards and the eval CLI with --nproc-per-node 2 need 2")
+        else:
+            edir = os.path.join(d, "world_nccl")
+            os.makedirs(edir)
+            spawn_world(eval_dist_worker, 2, (edir, "nccl", data, ckpt, scales, width,
+                                              cli_flags, dev))
+            for r in range(2):
+                res = torch.load(os.path.join(edir, f"rank{r}.pt"), weights_only=False)
+                for path in EVAL_DIST_PATHS:
+                    require(same_value(res["a"][path]["value"], ref[path]["value"]),
+                            f"phase 14 (e) {path}: rank {r} under NCCL differs from one process")
+            launch("eval_cli_world2", [*run, "2", "-m", "pmpu_tpu_torch.eval", *cli_flags])
+            cli2, _ = finish("eval_cli_world2")
+            require(report_part(cli2) == report_part(cli1),
+                    "phase 14 (e): the eval CLI over 2 cards differs from one process")
+            print(f"  [{card}] (e) (a) under NCCL on 2 cards bit-equal; the eval CLI with "
+                  "--nproc-per-node 2 prints one process's report")
+        out["s"] = time.perf_counter() - t_phase
+    finally:
+        for proc, log, _ in procs.values():
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)  # the whole session
+            proc.wait()
+            log.close()
+        tmp.cleanup()
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write all measurements to this file")
@@ -3505,6 +3999,7 @@ def main() -> int:
     summary["stream"] = phase_stream(card, task)
     clock.append(("stream", time.perf_counter()))
     summary["eval"] = phase_eval(card, task)
+    phase9_report = summary["eval"].pop("report")
     clock.append(("eval", time.perf_counter()))
     serve_sd = {k: t.detach().cpu().clone() for k, t in task.net.state_dict().items()}
     del task, vol, truth, r_bf16
@@ -3518,6 +4013,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     summary["train_dist"] = phase_train_dist(card)
     clock.append(("train_dist", time.perf_counter()))
+    torch.cuda.empty_cache()
+    summary["eval_dist"] = phase_eval_dist(card, serve_sd, phase9_report)
+    clock.append(("eval_dist", time.perf_counter()))
     summary["phase_s"] = {name: b - a for (_, a), (name, b) in zip(clock, clock[1:])}
     summary["phase_s"]["build"] = build_s
     print(f"seconds by phase: { {k: round(v, 1) for k, v in summary['phase_s'].items()} }; "
@@ -3547,6 +4045,9 @@ def main() -> int:
             **{f"{key}_world2": [c[count] for c in dist_b["launches_per_step"][key]]
                for key in ("sharded", "dp1", "dp4")}}
         k["train_dp_loop_world2_launches"] = [c[count] for c in dist_b["loop"]["launches"]]
+        # per path, each rank of phase 14 (a)'s world of 2
+        k["eval_dp_launches_per_volume"] = {
+            path: c[count] for path, c in summary["eval_dist"]["a"]["launches_per_volume"].items()}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:

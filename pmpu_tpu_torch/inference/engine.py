@@ -1,5 +1,5 @@
 """Whole-volume multi-view inference (counterpart of
-``pmpu_tpu/inference/engine.py``, all but the XLA-specific parts: the mesh,
+``pmpu_tpu/inference/engine.py``, all but the XLA-specific parts:
 ``_compile_batched`` and ``batched_hbm_xla``).
 
 One volume's path:
@@ -36,6 +36,18 @@ activations of one volume for the same number of launches.
 (``batched_hbm_estimate`` against ``device_hbm_limit``) and an
 out-of-memory backstop on the first group; either falls back to
 ``evaluate_store``.
+
+Slice-parallel evaluation (``mesh``, JAX :184 and :458-466): with a
+``parallel.Mesh`` of ``data > 1`` ranks (one process each, the default
+process group), every rank builds the whole view slab, normalizes only
+the planes of its contiguous block of the chunk plan's chunks (split as
+``parallel.data_sharding`` splits rows: a rank may get none), runs the
+model on those chunks, chunk i drawing from ``chunk_generator(seed, i)``
+as in one process, and the logits are all-gathered in f32
+(``parallel.gather_blocks``) before the softmax and the fusion, which
+every rank then computes alike: the results are one process's bit for
+bit. Rank 0 alone writes files (exports, the int8 scale file). Every rank
+must call the same entry points in the same order.
 """
 
 from __future__ import annotations
@@ -50,6 +62,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from pmpu_tpu_torch.data import nifti
@@ -59,6 +72,7 @@ from pmpu_tpu_torch.models import quantized as qz
 from pmpu_tpu_torch.inference.fusion import (
     fuse_mean,
     make_view_bases,
+    normalize_slab_planes,
     normalize_slabs,
     oblique_slabs,
     reassemble_views,
@@ -67,6 +81,8 @@ from pmpu_tpu_torch.inference.fusion import (
 )
 from pmpu_tpu_torch.ops.cuda.fcomb_mean import fcomb_mean_decode
 from pmpu_tpu_torch.ops.metrics import generalized_energy_distance, volume_per_class_dice
+from pmpu_tpu_torch.parallel.gather import gather_blocks, is_lead
+from pmpu_tpu_torch.parallel.mesh import data_sharding, world
 
 
 def auto_eval_batch(total: int, h: int, w: int) -> int:
@@ -207,6 +223,10 @@ class VolumeEvaluator:
               with the source affine (``store.geoms``); False exports the
               padded cube with the identity affine (the reference's exports)
       device: None means "cuda"; raises without a CUDA device unless "cpu"
+      mesh: a ``parallel.Mesh`` of the default process group's ranks; with
+              ``data > 1`` each rank runs its block of every slab's chunks
+              and the logits are all-gathered (slice-parallel evaluation);
+              None or ``data == 1``: this process runs every chunk
     """
 
     def __init__(
@@ -221,8 +241,13 @@ class VolumeEvaluator:
         calibration: Optional[str] = None,
         source_geometry: bool = True,
         device=None,
+        mesh=None,
     ):
         self.device = resolve_device(device)
+        if mesh is not None and mesh.data > 1 and mesh.size != world()[1]:
+            raise ValueError(f"the mesh spans {mesh.size} ranks, the world has {world()[1]}")
+        self.mesh = mesh
+        self._split_shapes = set()  # the slab shapes whose chunk block was logged
         net_device = next(task.net.parameters()).device
         if net_device.type != self.device.type:
             raise ValueError(f"task network is on {net_device}, evaluator on {self.device}")
@@ -327,7 +352,11 @@ class VolumeEvaluator:
                 self._qvars = qz.quantize_unet(net)
             self._qvars_src = ident
             self._qvars_calibrated = False
-            if self.calibration and os.path.exists(self.calibration):
+            found = bool(self.calibration) and os.path.exists(self.calibration)
+            if self._split():
+                # every rank has looked before rank 0 may write the file
+                dist.barrier()
+            if found:
                 try:
                     with open(self.calibration) as f:
                         d = json.load(f)
@@ -359,7 +388,8 @@ class VolumeEvaluator:
         else:
             qz.calibrate_unet(self._qvars, x, net.num_filters, self.task.n_classes, dtype=cd)
         self._qvars_calibrated = True
-        if self.calibration and (self._cal_rewrite or not os.path.exists(self.calibration)):
+        if self.calibration and is_lead() and (self._cal_rewrite
+                                               or not os.path.exists(self.calibration)):
             # a kill mid-write or a concurrent reader never sees a torn file
             tmp = self.calibration + ".tmp"
             with open(tmp, "w") as f:
@@ -404,36 +434,56 @@ class VolumeEvaluator:
             return net.decode_samples(feats, zs)
         return fcomb_mean_decode(feats, zs, net.fcomb_params(), net.no_convs_fcomb, net.dtype)
 
+    def _split(self) -> bool:
+        """Whether this evaluator splits each slab's chunks over ranks."""
+        return self.mesh is not None and self.mesh.data > 1
+
     def _chunked_logits(self, slabs: torch.Tensor, seed: int,
                         per_sample: bool = False) -> torch.Tensor:
-        """(total,H,W) slab → (total,H,W,C) logits, or (n_samples,total,H,W,C)
-        with ``per_sample``."""
+        """(total,H,W) slab, not yet normalized → (total,H,W,C) logits, or
+        (n_samples,total,H,W,C) with ``per_sample``."""
         logits = self._group_logits(slabs[None], [seed], per_sample)
         return logits[:, 0] if per_sample else logits[0]
 
     def _group_logits(self, slabs: torch.Tensor, seeds, per_sample: bool = False):
-        """(V,total,H,W) slabs of V volumes → (V,total,H,W,C) logits, or
-        (n_samples,V,total,H,W,C) with ``per_sample``. Chunk i of every
-        volume goes through the model in one call (V·b slices); volume j
-        draws chunk i's prior noise from ``chunk_generator(seeds[j], i)``,
-        as a one-volume evaluation with seed ``seeds[j]`` does."""
+        """(V,total,H,W) slabs of V volumes, not yet normalized →
+        (V,total,H,W,C) logits, or (n_samples,V,total,H,W,C) with
+        ``per_sample``. Chunk i of every volume goes through the model in one
+        call (V·b slices); volume j draws chunk i's prior noise from
+        ``chunk_generator(seeds[j], i)``, as a one-volume evaluation with seed
+        ``seeds[j]`` does. Split over ranks, this rank normalizes and runs its
+        block of the chunks, and the blocks' logits are all-gathered."""
         v, total, h, w = slabs.shape
         b, nchunk = eval_chunk_plan(total, h, w, self.eval_batch)
-        pad = nchunk * b - total
+        if self._split():
+            sizes = [len(range(nchunk)[data_sharding(self.mesh, nchunk, r)])
+                     for r in range(self.mesh.data)]
+            mine = range(nchunk)[data_sharding(self.mesh, nchunk)]
+            if (v, total, h, w) not in self._split_shapes:
+                self._split_shapes.add((v, total, h, w))
+                logging.info("rank %d of %d: chunks [%d, %d) of %d (%d slices each) of a "
+                             "%dx%dx%dx%d slab", world()[0], self.mesh.data, mine.start,
+                             mine.stop, nchunk, b, v, total, h, w)
+        else:
+            mine = range(nchunk)
+        lo, hi = mine.start * b, min(mine.stop * b, total)
+        with record_function("slice_slabs"):
+            x = normalize_slab_planes(slabs, lo, hi)
+        pad = len(mine) * b - x.shape[1]
         if pad:
-            slabs = torch.cat([slabs, slabs.new_zeros((v, pad, h, w))], dim=1)
+            x = torch.cat([x, x.new_zeros((v, pad, h, w))], dim=1)
         sampled = self.task.is_probabilistic and not self.mean_z
         ax = 1 if per_sample else 0  # the volume axis of the logits
-        logits = None
-        for i in range(nchunk):
+        draws = (self.n_samples,) if per_sample else ()
+        logits = torch.empty(draws + (v, len(mine) * b, h, w, self.task.n_classes),
+                             device=slabs.device)
+        for k, i in enumerate(mine):
             gens = [chunk_generator(self.device, s, i) for s in seeds] if sampled else None
-            x = slabs[:, i * b : (i + 1) * b].reshape(v * b, h, w, 1)
-            li = self._model_logits(x, gens, per_sample).unflatten(ax, (v, b))
-            if logits is None:
-                shape = list(li.shape)
-                shape[ax + 1] = nchunk * b
-                logits = li.new_empty(shape)
-            logits.narrow(ax + 1, i * b, b).copy_(li)
+            xi = x[:, k * b : (k + 1) * b].reshape(v * b, h, w, 1)
+            li = self._model_logits(xi, gens, per_sample).unflatten(ax, (v, b))
+            logits.narrow(ax + 1, k * b, b).copy_(li)
+        if self._split():
+            logits = gather_blocks(logits, [n * b for n in sizes], dim=ax + 1)
         return logits.narrow(ax + 1, 0, total)
 
     def _to_probs(self, outputs: torch.Tensor) -> torch.Tensor:
@@ -460,11 +510,11 @@ class VolumeEvaluator:
         v, s = vols.shape[0], vols.shape[-1]
         if self._bases is None:
             with record_function("slice_slabs"):
-                slabs = normalize_slabs(view_slabs(vols))
+                slabs = view_slabs(vols)
         else:
             with record_function("oblique_slabs"):
                 planes = [oblique_slabs(x, self._bases) for x in vols]
-                slabs = normalize_slabs(planes[0][None] if v == 1 else torch.stack(planes))
+                slabs = planes[0][None] if v == 1 else torch.stack(planes)
         with record_function("model"):
             probs = self._to_probs(self._group_logits(slabs, seeds, per_sample))
         outs = []
@@ -666,6 +716,13 @@ class VolumeEvaluator:
         return {"per_view": [np.stack(v) for v in report["per_view"]],
                 "fused": np.stack(report["fused"])}
 
+    def _writes(self, save_dir, uncertainty_dir) -> tuple:
+        """The export directories this rank writes to: all of them on rank 0
+        (or without ranks), none on the others; '' counts as None."""
+        if not is_lead():
+            return None, None
+        return save_dir or None, uncertainty_dir or None
+
     @torch.inference_mode()
     def evaluate_store(self, store, seed: int = 0, save_dir: Optional[str] = None,
                        uncertainty_dir: Optional[str] = None, pipeline_depth: int = 2) -> dict:
@@ -676,8 +733,9 @@ class VolumeEvaluator:
         fused volume; no second model pass), both written by a background
         thread. Volume i takes the seed ``derive_seed(seed, i)`` and
         volumes i+1..i+``pipeline_depth`` are dispatched before volume i is
-        fetched; every depth gives the bits of depth 0."""
-        save_dir, uncertainty_dir = save_dir or None, uncertainty_dir or None
+        fetched; every depth gives the bits of depth 0. Split over ranks,
+        every rank returns the report and rank 0 alone writes the exports."""
+        save_dir, uncertainty_dir = self._writes(save_dir, uncertainty_dir)
         report = self._new_report()
         depth = max(0, pipeline_depth)
         pending = deque()
@@ -780,8 +838,10 @@ class VolumeEvaluator:
 
         It falls back to :meth:`evaluate_store` with a warning when
         :meth:`batched_hbm_estimate` exceeds 0.90 × ``device_hbm_limit``, or
-        when the first group runs out of device memory."""
-        save_dir, uncertainty_dir = save_dir or None, uncertainty_dir or None
+        when the first group runs out of device memory; split over ranks an
+        out-of-memory error raises instead (a rank that fell back alone
+        would leave the others in a collective)."""
+        save_dir, uncertainty_dir = self._writes(save_dir, uncertainty_dir)
         vb = max(1, volumes_per_batch)
         n = len(store)
 
@@ -816,7 +876,7 @@ class VolumeEvaluator:
                     dice = self._fetch(h, "dice", np.copy)
                 except torch.cuda.OutOfMemoryError as e:
                     # later groups have the first one's shapes: if it fits, they do
-                    if g0:
+                    if g0 or self._split():
                         raise
                     oom = f"out of device memory ({type(e).__name__})"
                 if oom:  # outside the handler, so that its frames' tensors are freed
@@ -841,13 +901,15 @@ class VolumeEvaluator:
         the fused views decoded from its own prior draw; all draws share one
         model pass (the backbone and the prior run once per chunk, only the
         fcomb decode fans out). The draws come from an evaluator kept per
-        ``n_ged_samples`` with this one's ``num_views``, ``eval_batch`` and
-        ``quantize``; ``n_samples`` of this evaluator is left as it was."""
+        ``n_ged_samples`` with this one's ``num_views``, ``eval_batch``,
+        ``quantize`` and ``mesh``; ``n_samples`` of this evaluator is left as
+        it was."""
         ev = self._ged_evaluators.get(n_ged_samples)
         if ev is None:
             ev = self if n_ged_samples == self.n_samples else VolumeEvaluator(
                 self.task, n_samples=n_ged_samples, eval_batch=self.eval_batch,
-                num_views=self.num_views, quantize=self.quantize, device=self.device)
+                num_views=self.num_views, quantize=self.quantize, device=self.device,
+                mesh=self.mesh)
             self._ged_evaluators[n_ged_samples] = ev
         if self.quantize:
             ev._qvars = self._maybe_quantize()

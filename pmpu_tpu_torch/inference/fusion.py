@@ -23,9 +23,22 @@ def normalize_slabs(slabs: torch.Tensor) -> torch.Tensor:
     """Per-slice max normalization of (..., S,S) slices (a slice whose max
     is 0 passes through): one launch of the gather-normalize kernel with ids
     0..P-1 and no labels."""
-    planes = slabs.reshape(-1, *slabs.shape[-2:])
-    ids = torch.arange(planes.shape[0], device=slabs.device)
-    return gather_normalize_planes(planes.contiguous(), ids)[0].view(slabs.shape)
+    planes = slabs.reshape(1, -1, *slabs.shape[-2:])
+    return normalize_slab_planes(planes, 0, planes.shape[1]).view(slabs.shape)
+
+
+def normalize_slab_planes(slabs: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Planes ``lo..hi-1`` of each of V slabs (V,T,H,W), max-normalized as
+    :func:`normalize_slabs` does them: (V,hi-lo,H,W), one launch of the
+    gather-normalize kernel with those planes' ids (none for no planes), so
+    that a rank of the slice-parallel evaluator normalizes only its own."""
+    v, t = slabs.shape[:2]
+    if hi <= lo:
+        return slabs.new_empty((v, 0) + tuple(slabs.shape[2:]))
+    planes = slabs.reshape(v * t, *slabs.shape[2:]).contiguous()
+    ids = (torch.arange(v, device=slabs.device)[:, None] * t
+           + torch.arange(lo, hi, device=slabs.device)[None]).reshape(-1)
+    return gather_normalize_planes(planes, ids)[0].view(v, hi - lo, *slabs.shape[2:])
 
 
 def reassemble_views(probs: torch.Tensor):

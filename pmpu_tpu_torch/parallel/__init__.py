@@ -1,7 +1,10 @@
-"""Multi-device training on ``torch.distributed`` (counterpart of
-``pmpu_tpu/parallel``): the ranks and their mesh, per-rank sharded data,
-and the data-parallel and host-local steps. Tensor parallelism over the
-``model`` axis is not ported (``make_mesh(model > 1)`` raises)."""
+"""Multi-device training and evaluation on ``torch.distributed``
+(counterpart of ``pmpu_tpu/parallel``): the ranks and their mesh, per-rank
+sharded data, the data-parallel and host-local steps, and the slice-parallel
+evaluator's gather and writer guard. Tensor parallelism over the ``model``
+axis is not ported (``make_mesh(model > 1)`` raises)."""
+
+from pmpu_tpu_torch.parallel.gather import gather_blocks, is_lead  # noqa: F401
 
 from pmpu_tpu_torch.parallel.hostdata import (  # noqa: F401
     ShardedTripleBatcher,
@@ -15,6 +18,7 @@ from pmpu_tpu_torch.parallel.mesh import (  # noqa: F401
     data_sharding,
     init_distributed,
     make_mesh,
+    next_world_env,
     replicated,
     spawn_world,
 )

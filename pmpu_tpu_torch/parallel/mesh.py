@@ -15,6 +15,14 @@ only ``model == 1`` is ported (tensor parallelism is not, ROADMAP.md).
   longer; a rank may get none).
 * :func:`replicated` — rank 0's values of a module's parameters and
   buffers on every rank (one broadcast of one flat buffer).
+* :func:`next_world_env` — what a re-exec of every rank (the train CLI's
+  ``--rss-limit-mb``) sets in the environment so that the new processes
+  meet in a fresh rendezvous: a world generation, under whose prefix
+  :func:`init_distributed` keeps the new world's store keys (torchrun's
+  agent store outlives the re-exec, and the first world's keys are still in
+  it), and, where rank 0 hosts the store itself (:func:`spawn_world`, a
+  hand-set environment), a new ``MASTER_PORT``: the old store dies with
+  rank 0's old process image.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ from pmpu_tpu_torch.device import resolve_device
 
 # what torchrun sets in each worker's environment
 _ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+# the generation of a world that re-executed its ranks (``next_world_env``)
+GENERATION = "PMPU_WORLD_GENERATION"
 
 
 def world() -> tuple:
@@ -37,11 +47,6 @@ def world() -> tuple:
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
-
-
-def env_world_size() -> int:
-    """The world size the environment asks for (``WORLD_SIZE``, 1 unset)."""
-    return int(os.environ.get("WORLD_SIZE", "1"))
 
 
 def local_device(device=None) -> torch.device:
@@ -59,7 +64,9 @@ def init_distributed(device=None) -> tuple:
     return ``(rank, world size)``: NCCL for a CUDA device, with this process
     bound to ``cuda:{LOCAL_RANK}``, gloo for the CPU. Without
     ``WORLD_SIZE`` in the environment it does nothing and returns ``(0,
-    1)``. A failure to join raises; nothing carries on alone."""
+    1)``. A failure to join raises; nothing carries on alone. The store's
+    keys go under the prefix of the world's generation
+    (``PMPU_WORLD_GENERATION``, 0 for a first start; :func:`next_world_env`)."""
     if "WORLD_SIZE" not in os.environ:
         return 0, 1
     missing = [k for k in _ENV if k not in os.environ]
@@ -70,12 +77,30 @@ def init_distributed(device=None) -> tuple:
         return world()
     rank, size = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     url = f"tcp://{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}"
+    backend = "gloo"
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-        dist.init_process_group("nccl", init_method=url, rank=rank, world_size=size)
-    else:
-        dist.init_process_group("gloo", init_method=url, rank=rank, world_size=size)
+        backend = "nccl"
+    store, _, _ = next(dist.rendezvous(f"{url}?rank={rank}&world_size={size}"))
+    store = dist.PrefixStore(f"pmpu_world_generation_{os.environ.get(GENERATION, '0')}/", store)
+    dist.init_process_group(backend, store=store, rank=rank, world_size=size)
     return rank, size
+
+
+def next_world_env() -> dict:
+    """The environment variables under which a re-exec of every rank of
+    this world joins a fresh world: the next generation, and a new
+    ``MASTER_PORT`` (a free port of rank 0's, broadcast) unless torchrun's
+    agent hosts the store. A collective: every rank calls it, before the
+    process group is destroyed."""
+    env = {GENERATION: str(int(os.environ.get(GENERATION, "0")) + 1)}
+    if os.environ.get("TORCHELASTIC_USE_AGENT_STORE") != "True":
+        cuda = dist.get_backend() == "nccl"
+        dev = torch.device("cuda", torch.cuda.current_device()) if cuda else torch.device("cpu")
+        port = torch.tensor([free_port() if world()[0] == 0 else 0], device=dev)
+        dist.broadcast(port, 0)
+        env["MASTER_PORT"] = str(int(port.item()))
+    return env
 
 
 def free_port() -> int:

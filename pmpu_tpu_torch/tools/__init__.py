@@ -1,1 +1,3 @@
-"""Measurement tools of the port that run on the card."""
+"""Tools of the port: measurement tools that run on the card, the parity
+demonstrator against the reference mirror, the stream-training soak, and
+the offline NIfTI data tools (no device)."""

@@ -13,9 +13,18 @@ runs the kernels' plain versions on the CPU.
 writes ``{net}_rss_resume.pt``, and the process re-executes itself (``python
 -m pmpu_tpu_torch.train``, the same flags) with ``-f`` on that checkpoint,
 the remaining epochs and ``--epoch-offset`` advanced, so the run ends in a
-fresh process with the epoch numbering of one run. SIGINT stays blocked
-across the ``execv`` (pending, not fatal, while the new interpreter
-imports) and the new process unblocks it first thing.
+fresh process with the epoch numbering of one run. SIGTERM writes
+``INTERRUPTED.pth`` only while ``train_net`` holds training state (from its
+"Starting training" line to the end of the loop); before that (the world's
+rendezvous, the store's load, a re-exec's start-up, the resume checkpoint
+already on disk) it ends the process at once, as it ends the JAX
+``train.py``. In a world the ranks
+decide together at the epoch's end, rank 0 writes the checkpoint, and
+every rank destroys the process group and re-executes itself under
+``parallel.next_world_env`` (the next world generation: a fresh prefix of
+the store, and a new port where rank 0 hosts the store), so the new
+processes meet in a fresh rendezvous, under torchrun (whose agent keeps
+the PIDs it watches: ``execv`` keeps them) or ``spawn_world`` alike.
 
 Several cards (``--data-parallel``, ``--sharded-volumes``; JAX ``train.py``
 :46-52), one process a card on ``torch.distributed`` with NCCL:
@@ -44,7 +53,7 @@ import torch.distributed as dist
 from pmpu_tpu_torch.config import add_train_args, config_from_args
 from pmpu_tpu_torch.data.volumes import VolumeStore
 from pmpu_tpu_torch.device import resolve_device
-from pmpu_tpu_torch.parallel.mesh import env_world_size, init_distributed, local_device, spawn_world
+from pmpu_tpu_torch.parallel.mesh import init_distributed, local_device, next_world_env, spawn_world
 from pmpu_tpu_torch.train.loop import RssLimitExceeded, check_ported, train_net
 
 
@@ -61,7 +70,7 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     spawn = ((cfg.data_parallel or cfg.sharded_volumes) and "WORLD_SIZE" not in os.environ
              and device.type == "cuda" and torch.cuda.device_count() > 1)
-    check_ported(cfg, torch.cuda.device_count() if spawn else env_world_size())
+    check_ported(cfg)
     if spawn:
         logging.info("one worker per card: %d processes", torch.cuda.device_count())
         spawn_world(main, torch.cuda.device_count(), (argv,))
@@ -87,6 +96,9 @@ def main(argv=None) -> int:
         resume = _resume_argv(argv, e.checkpoint_path, cfg.epochs - e.epochs_done,
                               epoch_offset=cfg.epoch_offset + e.epochs_done)
         cmd = [sys.executable, "-m", "pmpu_tpu_torch.train", *resume]
+        if dist.is_initialized():
+            os.environ.update(next_world_env())
+            dist.destroy_process_group()
         logging.warning("re-exec for bounded RSS: %s", " ".join(cmd))
         sys.stdout.flush()
         sys.stderr.flush()

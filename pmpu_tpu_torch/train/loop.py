@@ -59,7 +59,10 @@ turns on ``jax_debug_nans``): a NaN raises ``FloatingPointError`` at the
 first module that outputs one. With ``--rss-limit-mb`` an
 epoch that ends above that host RSS writes ``{net}_rss_resume.pt`` and
 raises :class:`RssLimitExceeded`, on which the train CLI re-executes itself
-for the remaining epochs.
+for the remaining epochs. In a world the ranks decide together (each
+rank's flag summed over the ranks: any rank over the limit stops them all
+at the same epoch), rank 0 writes the checkpoint, and after a barrier every
+rank raises.
 """
 
 from __future__ import annotations
@@ -110,19 +113,14 @@ from pmpu_tpu_torch.utils.tblog import MetricWriter
 
 log = logging.getLogger(__name__)
 
-def check_ported(cfg: Config, world_size: int = 1):
+def check_ported(cfg: Config):
     """Raise, naming every flag of ``cfg`` that asks for a training path the
     port does not have: ``--async-checkpoints`` (Orbax directories, which
-    only orbax, a jax package, reads and writes) and ``--rss-limit-mb`` in a
-    world of more than one rank (the re-execution of one rank would leave
-    the others; ROADMAP.md queue 1)."""
-    bad = ["--async-checkpoints"] if cfg.async_checkpoints else []
-    if cfg.rss_limit_mb and world_size > 1:
-        bad.append(f"--rss-limit-mb in a world of {world_size} ranks")
-    if bad:
+    only orbax, a jax package, reads and writes)."""
+    if cfg.async_checkpoints:
         raise NotImplementedError(
-            "not in pmpu_tpu_torch's training (Orbax checkpoints and the bounded-RSS "
-            "re-execution of a multi-rank world are not ported): " + ", ".join(bad))
+            "not in pmpu_tpu_torch's training (Orbax checkpoints are not ported): "
+            "--async-checkpoints")
 
 
 class RssLimitExceeded(Exception):
@@ -159,7 +157,7 @@ def train_net(cfg: Config, store: VolumeStore, interrupt_flag=None, device=None)
     the whole store."""
     device = resolve_device(device)
     rank, n_ranks = world()
-    check_ported(cfg, n_ranks)
+    check_ported(cfg)
     task = make_task(cfg.net, **cfg.task_kwargs(), device=device, seed=cfg.seed, train=True)
     n_classes = task.n_classes
     if cfg.sharded_volumes and cfg.num_views != 3:
@@ -290,12 +288,6 @@ def train_net(cfg: Config, store: VolumeStore, interrupt_flag=None, device=None)
         comment=f"LRF_{cfg.lrf}_LRP_{cfg.lrp}_EP_{cfg.epochs}_LR_{cfg.lr}_BS_{cfg.batchsize}",
         enable_tb=lead and (cfg.logdir is not None or cfg.save_cp),
     )
-    log.info(
-        "Starting training: epochs=%d batch=%d (%d x %d) lr=%g train=%d val=%d device=%s "
-        "rank %d of %d",
-        cfg.epochs, cfg.batchsize, acc_steps, micro, cfg.lr, len(train_idx), len(val_idx),
-        device, rank, n_ranks,
-    )
     history = {"train_loss": [], "val_loss": [], "val_dice": [], "step_time": []}
     os.makedirs(cfg.checkpoint_dir, exist_ok=True)
     model_extra = {"model_config": _model_config(cfg, task)}
@@ -316,13 +308,21 @@ def train_net(cfg: Config, store: VolumeStore, interrupt_flag=None, device=None)
     prev = {}
     for sig in (signal.SIGTERM, signal.SIGINT) if n_ranks > 1 else (signal.SIGTERM,):
         try:
-            prev[sig] = signal.signal(sig, lambda *_: sig_hit.__setitem__("v", True))
+            prev[sig] = signal.signal(sig, lambda num, _: sig_hit.__setitem__("v", num))
         except ValueError:
             pass
     user_flag = interrupt_flag
+    # logged once the handler holds SIGTERM: from here a SIGTERM saves
+    # INTERRUPTED.pth (a soak waits for this line before it sends one)
+    log.info(
+        "Starting training: epochs=%d batch=%d (%d x %d) lr=%g train=%d val=%d device=%s "
+        "rank %d of %d",
+        cfg.epochs, cfg.batchsize, acc_steps, micro, cfg.lr, len(train_idx), len(val_idx),
+        device, rank, n_ranks,
+    )
 
     def interrupted():
-        return sig_hit["v"] or bool(user_flag and user_flag())
+        return bool(sig_hit["v"]) or bool(user_flag and user_flag())
 
     if sv is not None:
         n_chips = n_shards
@@ -333,6 +333,7 @@ def train_net(cfg: Config, store: VolumeStore, interrupt_flag=None, device=None)
     ctx = trace(cfg.profile_dir) if cfg.profile_dir else contextlib.nullcontext()
     if cfg.nan_checks:
         enable_nan_checks()
+    reexec = False
     try:
         with ctx:
             _epoch_loop(cfg, task, state, train_step, eval_step, plateau, writer, images_d,
@@ -343,6 +344,7 @@ def train_net(cfg: Config, store: VolumeStore, interrupt_flag=None, device=None)
         log.info("Saved interrupt%s", " (signal)" if sig_hit["v"] else "")
         raise
     except RssLimitExceeded:
+        reexec = True
         writer.close()  # flush before the CLI re-executes the process
         raise
     finally:
@@ -350,6 +352,10 @@ def train_net(cfg: Config, store: VolumeStore, interrupt_flag=None, device=None)
             enable_nan_checks(False)
         for sig, handler in prev.items():
             signal.signal(sig, handler)
+        if reexec and sig_hit["v"]:
+            # caught after the loop's last check, with the resume checkpoint
+            # on disk: the signal ends the process, as it does outside the loop
+            signal.raise_signal(sig_hit["v"])
 
     if cfg.save_cp:
         path = os.path.join(cfg.checkpoint_dir, f"{task.name}_model.pt")
@@ -579,19 +585,26 @@ def _epoch_loop(cfg, task, state, train_step, eval_step, plateau, writer, images
             save(path)
             log.info("Saved model %s", path)
         log.info(
-            "epoch %d/%d done (%.4fs/step median, %.1f slices/s/chip)",
-            gepoch + 1, cfg.epochs + cfg.epoch_offset, timer.sec_per_step, timer.slices_per_sec,
+            "epoch %d/%d done (%.4fs/step median, %.1f slices/s/chip; train loss %r, val loss "
+            "%r; rank %d of %d)", gepoch + 1, cfg.epochs + cfg.epoch_offset, timer.sec_per_step,
+            timer.slices_per_sec, float(history["train_loss"][-1]),
+            float(history["val_loss"][-1]) if n_val else None, rank, n_ranks,
         )
         if sum_values([interrupted()])[0]:  # any rank's flag stops every rank
             raise KeyboardInterrupt
 
-        rss = rss_mb() if cfg.rss_limit_mb else 0.0
-        if cfg.rss_limit_mb and rss > cfg.rss_limit_mb and epoch + 1 < cfg.epochs:
-            # the epoch boundary is the resume point: the re-executed
-            # process restores state, momentum, generator and plateau from
-            # this checkpoint and runs the remaining epochs
-            path = os.path.join(cfg.checkpoint_dir, f"{task.name}_rss_resume.pt")
-            save(path)
-            log.warning("rss %.0f MB exceeds --rss-limit-mb %.0f after epoch %d; resume "
-                        "checkpoint %s", rss, cfg.rss_limit_mb, epoch + 1, path)
-            raise RssLimitExceeded(path, epoch + 1, rss)
+        if cfg.rss_limit_mb and epoch + 1 < cfg.epochs:
+            # each rank's RSS differs: the ranks decide together, so that
+            # none re-executes alone and leaves the others in a collective
+            rss = rss_mb()
+            if sum_values([rss > cfg.rss_limit_mb])[0]:
+                # the epoch boundary is the resume point: the re-executed
+                # process restores state, momentum, generator and plateau
+                # from this checkpoint and runs the remaining epochs
+                path = os.path.join(cfg.checkpoint_dir, f"{task.name}_rss_resume.pt")
+                save(path)  # rank 0 writes, then a barrier
+                if sum_values([interrupted()])[0]:  # a signal during the save
+                    raise KeyboardInterrupt
+                log.warning("rss %.0f MB (rank %d) against --rss-limit-mb %.0f after epoch %d; "
+                            "resume checkpoint %s", rss, rank, cfg.rss_limit_mb, epoch + 1, path)
+                raise RssLimitExceeded(path, epoch + 1, rss)

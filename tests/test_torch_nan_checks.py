@@ -99,7 +99,7 @@ def test_train_net_trains_with_nan_checks_and_raises_on_a_nan(tmp_path, monkeypa
     monkeypatch.chdir(tmp_path)
     cfg = Config(net="probunet", num_filters=NF, epochs=1, batchsize=2, nan_checks=True,
                  checkpoint_dir=str(tmp_path / "ck"), save_cp=False)
-    loop.check_ported(cfg, torch.device("cpu"))
+    loop.check_ported(cfg)
     _, _, history = loop.train_net(cfg, VolumeStore.from_arrays(*_data()), device="cpu")
     assert np.isfinite(history["train_loss"][0])
     assert profiling._nan_handle is None and not torch.is_anomaly_enabled()

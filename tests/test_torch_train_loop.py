@@ -197,17 +197,23 @@ def test_train_cli(tmp_path, monkeypatch, capsys):
     assert payload["plateau"]["lr"] == 0.001 and payload["step"] > 0
 
 
-@pytest.mark.parametrize("flags,world,named", [
-    (["--async-checkpoints"], "1", "--async-checkpoints"),
-    (["--rss-limit-mb", "100", "--data-parallel"], "2", "--rss-limit-mb in a world of 2 ranks"),
-    (["--rss-limit-mb", "1", "--async-checkpoints"], "2",
-     "--async-checkpoints, --rss-limit-mb in a world of 2 ranks"),
-    (["--nan-checks", "--async-checkpoints"], "1", r"ported\): --async-checkpoints$"),
+@pytest.mark.parametrize("flags,world,error,named", [
+    (["--async-checkpoints"], "1", NotImplementedError, "--async-checkpoints"),
+    # --rss-limit-mb is ported in a world: the CLI goes on to join it (and
+    # fails there, as torchrun's other variables are missing)
+    (["--rss-limit-mb", "100", "--data-parallel"], "2", RuntimeError, "WORLD_SIZE is set but"),
+    (["--rss-limit-mb", "1", "--async-checkpoints"], "2", NotImplementedError,
+     r"ported\): --async-checkpoints$"),
+    (["--nan-checks", "--async-checkpoints"], "1", NotImplementedError,
+     r"ported\): --async-checkpoints$"),
 ])
-def test_train_cli_refuses_unported_flags(flags, world, named, monkeypatch):
-    """Refused before the CLI joins a world (``WORLD_SIZE`` is torchrun's)."""
+def test_train_cli_refuses_unported_flags(flags, world, error, named, monkeypatch):
+    """Refused before the CLI joins a world (``WORLD_SIZE`` is torchrun's);
+    an accepted flag reaches the join."""
     monkeypatch.setenv("WORLD_SIZE", world)
-    with pytest.raises(NotImplementedError, match=named):
+    for k in ("RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(error, match=named):
         train_main(["-d", "no-such-dir", "--device", "cpu", *flags])
 
 

@@ -260,15 +260,11 @@ def test_oblique_training_loop(layout, tmp_path, monkeypatch):
 def test_check_ported_accepts_the_rest():
     cfg = Config(num_views=6, view_stacks=False, stream=True, augment=True, elastic_alpha=4.0,
                  remat=True, rss_limit_mb=100.0, data_parallel=True, nan_checks=True)
+    # --rss-limit-mb in a world of any size too: every rank re-executes
     loop.check_ported(cfg)
-    loop.check_ported(cfg, 1)
-    with pytest.raises(NotImplementedError, match="--rss-limit-mb in a world of 2 ranks"):
-        loop.check_ported(cfg, 2)
-    multi = Config(sharded_volumes=True, data_parallel=True, nan_checks=True)
-    for world in (1, 2, 8):
-        loop.check_ported(multi, world)
+    loop.check_ported(Config(sharded_volumes=True, data_parallel=True, nan_checks=True))
     every = Config(sharded_volumes=True, async_checkpoints=True, nan_checks=True,
                    data_parallel=True, rss_limit_mb=1.0)
     with pytest.raises(NotImplementedError) as e:
-        loop.check_ported(every, 4)
-    assert str(e.value).count("--") == 2
+        loop.check_ported(every)
+    assert str(e.value).count("--") == 1 and str(e.value).endswith("--async-checkpoints")

@@ -1,5 +1,6 @@
 """The ranks of a CPU world (gloo) for the port's multi-process tests
-(``tests/test_torch_parallel.py``, ``tests/test_torch_hostdata.py``).
+(``tests/test_torch_parallel.py``, ``tests/test_torch_hostdata.py``,
+``tests/test_torch_eval_parallel.py``, ``tests/test_torch_rss_world.py``).
 
     python -m tests.torch_dist_worker WORLD IODIR
 
@@ -153,6 +154,69 @@ def run_train_net(case, rank, size):
     return out
 
 
+def run_evaluator(case, rank, size):
+    """The slice-parallel ``VolumeEvaluator`` (a mesh of every rank) from a
+    state_dict: each op of ``case["ops"]`` in order, its result as numpy.
+    Exports and the int8 scale file go under ``case["cwd"]``, the same
+    paths on every rank (rank 0 alone writes)."""
+    from pmpu_tpu_torch.data.volumes import VolumeStore
+    from pmpu_tpu_torch.inference.engine import VolumeEvaluator
+    from pmpu_tpu_torch.parallel import make_mesh
+    from pmpu_tpu_torch.train.tasks import make_task
+
+    os.makedirs(case["cwd"], exist_ok=True)
+    task = make_task(case["name"], **case["kw"], device="cpu")
+    task.net.load_state_dict({k: torch.from_numpy(v) for k, v in case["state_dict"].items()})
+    kw = dict(case.get("ev", {}))
+    if "calibration" in kw:
+        kw["calibration"] = os.path.join(case["cwd"], kw["calibration"])
+    ev = VolumeEvaluator(task, device="cpu", mesh=make_mesh(), **kw)
+    out = []
+    for op, args in case["ops"]:
+        if op == "volume":
+            r = ev.evaluate_volume(*args)
+            out.append({"fused": r["fused"].numpy(), "argmax": r["argmax"], "dice": r.get("dice"),
+                        "views": [v.numpy() for v in r["views"]]})
+        elif op in ("store", "batched"):
+            imgs, lbls, seed, save, unc = args
+            dirs = [None if d is None else os.path.join(case["cwd"], d) for d in (save, unc)]
+            store = VolumeStore.from_arrays(imgs, lbls)
+            if op == "store":
+                out.append(ev.evaluate_store(store, seed, *dirs))
+            else:
+                out.append(ev.evaluate_store_batched(store, seed, *dirs, volumes_per_batch=2))
+        elif op == "ged":
+            out.append(ev.ged_volume(*args))
+        elif op == "stream":
+            vols, seed = args
+            out.append(ev.predict_volumes_pipelined(list(vols), seed, 2, want_entropy=True))
+        else:
+            raise ValueError(op)
+    return out
+
+
+def run_rss_decision(case, rank, size):
+    """``train_net`` with ``--rss-limit-mb`` where only rank
+    ``case["over"]`` reads an RSS over the limit: what each rank raised."""
+    from pmpu_tpu_torch.config import Config
+    from pmpu_tpu_torch.data.volumes import VolumeStore
+    from pmpu_tpu_torch.train import loop
+
+    os.makedirs(case["cwd"], exist_ok=True)
+    os.chdir(case["cwd"])
+    rss = loop.rss_mb
+    loop.rss_mb = lambda *a: 1e12 if rank == case["over"] else 1.0
+    try:
+        loop.train_net(Config(**case["cfg"]), VolumeStore.from_arrays(*case["data"]),
+                       device="cpu")
+        return {"raised": None}
+    except loop.RssLimitExceeded as e:
+        return {"raised": "RssLimitExceeded", "epochs_done": e.epochs_done,
+                "path": e.checkpoint_path, "files": sorted(os.listdir(case["cfg"]["checkpoint_dir"]))}
+    finally:
+        loop.rss_mb = rss
+
+
 def run_global_batch(case, rank, size):
     from pmpu_tpu_torch.parallel import make_global_batch
 
@@ -160,7 +224,8 @@ def run_global_batch(case, rank, size):
 
 
 KINDS = {"step": run_step, "eval": run_eval, "train_net": run_train_net,
-         "global_batch": run_global_batch}
+         "global_batch": run_global_batch, "evaluator": run_evaluator,
+         "rss_decision": run_rss_decision}
 
 
 def run_world(world, cases, iodir, timeout=240):
