@@ -259,6 +259,33 @@ Phases, each printing at least one line; any failure exits non-zero:
              ``--nproc-per-node 2``, else one line saying why not. The
              kernels line gives each kernel's ``eval_dp_launches_per_volume``
              by path, per rank.
+15. tensor parallel — ``parallel/tensor.py``, the state channel-sharded
+             over the mesh's model axis, on the dryrun's data (2 seeded 16³
+             scans, 16 rows, lr 1e-4, ``__graft_entry__.py:64-176``): (a) a
+             1x2 mesh of 2 gloo ranks sharing the card, the dryrun's legs
+             (probunet 8,16 at min_channels 16 and 2 microbatches; full
+             width at min_channels 64) and the full-width leg on the
+             view-stack sampler (the gather kernel), each one f32 step from
+             seed-0 weights against this process's one-process step with
+             the same eps (the dryrun's bounds: loss rtol 1e-4, parameters
+             rtol 1e-3 and atol 1e-4; the max |Δ| printed; the clip at 0.1
+             holds that step's update within 1e-5, so the backward is held
+             by the gathered gradients before the clip, all under cuDNN's
+             deterministic algorithms: each tensor's max |Δ| over its max and
+             the relative L2 of all within ``TP_GRAD_BOUNDS``, or at full
+             width within 3 times the one-process step's f32 floor, its
+             control with BatchNorm moments summed in float64), each rank's
+             parameter bytes beside the whole model's, ms a step on each
+             side (labelled as ranks sharing one card, not a multi-card
+             speed), each kernel's launches a step on each rank; (b) the
+             full-width leg on a 2x2 mesh of 4 gloo ranks; (c) in (a)'s
+             world, ``VolumeEvaluator`` on the 1x2 mesh with phase 9's model
+             on 2 scans: ``evaluate_store`` (3 views), int8 and 6 views, each
+             bit-equal to one process on both ranks, each kernel's launches a
+             volume on each rank; (d) with 2 cards, (a) under NCCL across
+             them, else one line saying why not. The kernels line gives each
+             kernel's ``tp_launches_per_step`` by leg and
+             ``tp_eval_launches_per_volume`` by path, per rank.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--json PATH`` also writes
@@ -3494,14 +3521,15 @@ SPLIT_KERNELS = ("fcomb_mean_decode", "fused_qchain_stripes", "fused_qchain_whol
 WHOLE_KERNELS = ("gather_normalize_planes", "oblique_planes")
 
 
-def eval_dist_runs(task, store, out_dir, scales, mesh, dev) -> dict:
+def eval_dist_runs(task, store, out_dir, scales, mesh, dev, paths=EVAL_DIST_PATHS) -> dict:
     """Phase 14 (a)'s runs of one side, the in-process one (``mesh`` None)
     or a rank of the world: ``evaluate_store`` at depth 2 on the 3 scans,
     with ``quantize="int8"`` (the scale file ``scales``) and with 6 views on
     the first 2, ``evaluate_store_batched`` at V = 2, ``ged_volume`` with 4
-    draws; exports and entropy maps under ``out_dir/{path}`` (rank 0 alone
-    writes). Each path: its value, s a volume and each kernel's launches a
-    volume, counted from 0."""
+    draws (those of ``paths``; phase 15 (c) runs the first three); exports
+    and entropy maps under ``out_dir/{path}`` (rank 0 alone writes). Each
+    path: its value, s a volume and each kernel's launches a volume, counted
+    from 0."""
     from pmpu_tpu_torch import VolumeEvaluator
     from pmpu_tpu_torch.data.volumes import VolumeStore
 
@@ -3516,7 +3544,7 @@ def eval_dist_runs(task, store, out_dir, scales, mesh, dev) -> dict:
         ev.evaluate_volume(store.images[0], seed=1, return_views=False)
     evs["batched"] = evs["ged"] = evs["store"]
     res = {}
-    for path in EVAL_DIST_PATHS:
+    for path in paths:
         ev = evs[path]
         dirs = [os.path.join(out_dir, path, k) for k in ("pred", "unc")]
         reset_kernel_counts()
@@ -3944,6 +3972,386 @@ def phase_eval_dist(card, state_dict, phase9_report=None, dev="cuda", width=None
         tmp.cleanup()
     return out
 
+# phase 15: the dryrun's data (``__graft_entry__.py:72-76``) and its legs
+TP_ROWS, TP_LR = 16, 1e-4  # the dryrun's 2 x 8 devices rows and its lr
+# the first step's gathered gradients before the clip against one
+# process's: (max |Δ| of each tensor over its max |gradient|, relative L2 of
+# all) at most these, or at the full-width legs FULL_WIDTH_F32_FLOORS times
+# the one-process step's own f32 floor (its control: BatchNorm moments
+# summed in float64) where that is larger; a gradient summed twice or
+# never over the model row is off by half its tensor's size or more, which
+# a bound of TP_GRAD_BLIND or more could not see. On an H100 80GB HBM3 at
+# 700 W the readings were 3.67e-6 and 1.89e-7 (8,16), 1.99e-2 and 1.86e-3
+# (1x2 full width, prior.encoder.layers.17.weight: its control read
+# 1.99e-2 and 1.92e-3, a BatchNorm over 16 rows of 4² maps) and 1.6e-5 and
+# 1.2e-5 (2x2); PERF.md section 6
+TP_GRAD_BOUNDS, TP_GRAD_BLIND = (1e-4, 1e-5), 0.25
+TP_EVAL_PATHS = ("store", "int8", "views6")
+
+
+def tp_data():
+    """The dryrun's 2 seeded 16³ scans (labels 0..2 everywhere), their view
+    stacks and the first 16 rows of their unfiltered index."""
+    from pmpu_tpu_torch.data.index_map import build_index_map
+    from pmpu_tpu_torch.data.volumes import make_view_stacks
+
+    rng = np.random.default_rng(0)
+    img = rng.random((2, 16, 16, 16)).astype(np.float32)
+    lbl = rng.integers(0, 3, size=(2, 16, 16, 16)).astype(np.int32)
+    rows = torch.from_numpy(build_index_map(lbl, filter=False)[:TP_ROWS]).long()
+    return img, lbl, make_view_stacks(img), make_view_stacks(lbl), rows
+
+
+def tp_legs(width):
+    """(key, width, min_channels, acc_steps, layout) of phase 15's steps:
+    the dryrun's probunet 8,16 leg and its full-width leg, and the
+    full-width leg on the view-stack sampler (the gather kernel). Off the
+    card ``width`` stands in for the full width, at min_channels 8."""
+    full = 64 if tuple(width) == FULL_WIDTH else 8
+    return (("probunet_8_16", (8, 16), 16, 2, "plain"), ("full", tuple(width), full, 1, "plain"),
+            ("full_vt", tuple(width), full, 1, "vt"))
+
+
+def tp_leg_args(leg, dev):
+    """A leg's step arguments after the state: the stacks of its layout, the
+    rows, the lr and seeded eps (acc_steps, rows / acc_steps, 6)."""
+    img, lbl, vt_i, vt_l, rows = tp_data()
+    stacks = (vt_i, vt_l) if leg[4] == "vt" else (img, lbl)
+    eps = torch.randn((leg[3], TP_ROWS // leg[3], 6),
+                      generator=torch.Generator().manual_seed(DIST_SEED + leg[3]))
+    return (*(torch.from_numpy(a).to(dev) for a in stacks), rows.to(dev), TP_LR, eps.to(dev))
+
+
+def param_vector(net) -> torch.Tensor:
+    return torch.cat([p.detach().float().reshape(-1).cpu() for p in net.parameters()])
+
+
+def param_bytes(net) -> int:
+    return sum(p.numel() * p.element_size() for p in net.parameters())
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside, the setting restored after."""
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+
+@contextlib.contextmanager
+def pre_clip_grads(net):
+    """Inside: the gradients that the step's first clip is given, before it
+    clips them, by parameter name (copies on their device), in the dict
+    yielded."""
+    names = {p: n for n, p in net.named_parameters()}
+    clip, seen = torch.nn.utils.clip_grad_value_, {}
+
+    def spy(params, value):
+        params = list(params)
+        if not seen:
+            seen.update({names[p]: p.grad.detach().clone() for p in params
+                         if p.grad is not None})
+        return clip(params, value)
+
+    torch.nn.utils.clip_grad_value_ = spy
+    try:
+        yield seen
+    finally:
+        torch.nn.utils.clip_grad_value_ = clip
+
+
+def grad_diffs(got: dict, want: dict) -> tuple:
+    """(the largest over tensors of max |Δ| / max |gradient|, the tensor
+    that has it, relative L2 of all the gradients) of ``got`` against
+    ``want``, both {name: whole f32 host tensor}."""
+    if got.keys() != want.keys():
+        return float("inf"), sorted(set(got) ^ set(want))[:3], float("inf")
+    per = {k: float((got[k] - w).abs().max() / w.abs().max().clamp_min(1e-30))
+           for k, w in want.items()}
+    worst = max(per, key=per.get)
+    flat = [torch.cat([d[k].reshape(-1) for k in sorted(want)]) for d in (got, want)]
+    return per[worst], worst, float((flat[0] - flat[1]).norm() / flat[1].norm())
+
+
+def tp_worker(out_dir, backend, mesh_shape, legs, evaluation=None, dev_type="cuda"):
+    """One rank of phase 15: (a), (b) or (d)'s legs on a ``mesh_shape``
+    mesh (gloo, every rank on cuda:0; or NCCL, rank r on cuda:r; or the CPU
+    rehearsal): each leg's checked step from seed-0 weights, f32, with the
+    state channel-sharded, its loss, this rank's and the whole model's
+    parameter bytes, the gathered parameters (rank 0), then ms a step and
+    each kernel's launches a step over 4 timed steps; then with
+    ``evaluation`` = (data dir, state_dict file, scale file, width) (c)'s
+    ``evaluate_store`` runs on the mesh. Writes ``rank{r}.pt``."""
+    import torch.distributed as dist
+
+    from pmpu_tpu_torch import make_task
+    from pmpu_tpu_torch.data.sampler import sample_batch, sample_batch_vt
+    from pmpu_tpu_torch.data.volumes import VolumeStore
+    from pmpu_tpu_torch.parallel import (
+        gather_state,
+        make_dp_train_step,
+        make_mesh,
+        make_state_shardings,
+        shard_state,
+    )
+    from pmpu_tpu_torch.parallel.tensor import gather_dim0
+    from pmpu_tpu_torch.train import steps
+
+    rank, size = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    cuda = dev_type == "cuda"
+    dev = torch.device("cuda", rank if backend == "nccl" else 0) if cuda else torch.device("cpu")
+    if cuda:
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{os.environ['MASTER_PORT']}",
+                            rank=rank, world_size=size)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        mesh = make_mesh(*mesh_shape)
+        out = {"backend": dist.get_backend(), "legs": {}}
+        for leg in legs:
+            key, width, min_channels, acc, layout = leg
+            task = make_task("probunet", num_filters=width, device=dev, seed=0, train=True)
+            state = steps.create_train_state(task, seed=0)
+            whole_bytes = param_bytes(task.net)
+            shardings = make_state_shardings(state, mesh, min_channels)
+            shard_state(state, shardings)
+            step = make_dp_train_step(task, mesh, acc_steps=acc,
+                                      sampler=sample_batch_vt if layout == "vt" else sample_batch)
+            args = tp_leg_args(leg, dev)
+            with deterministic_cudnn(), pre_clip_grads(task.net) as grads:
+                _, m = step(state, *args)
+            res = {"loss": float(m["loss"]), "param_bytes": param_bytes(task.net),
+                   "whole_param_bytes": whole_bytes}
+            whole = param_vector(gather_state(state, shardings).net)
+            grads = {k: (gather_dim0(g, mesh) if shardings.momentum[k] else g).float().cpu()
+                     for k, g in grads.items()}
+            if rank == 0:
+                res["params"], res["grads"] = whole, grads
+            reset_kernel_counts()
+            batches = [args[:-1]] * 6
+            if cuda:
+                res["ms"] = time_steps(step, state, batches)[0]
+            else:
+                res["ms"] = None
+                for b in batches:
+                    step(state, *b)
+            res["launches_per_step"] = {k: v / len(batches) for k, v in kernel_counts().items()}
+            out["legs"][key] = res
+            del task, state, step
+        if evaluation is not None:
+            data, ckpt, scales, width = evaluation
+            task = make_task("probunet", num_filters=width, dtype=torch.bfloat16 if cuda else None,
+                             device=dev, seed=0)
+            task.net.load_state_dict(torch.load(ckpt, map_location=dev))
+            store = VolumeStore.from_dirs(os.path.join(data, "images"),
+                                          os.path.join(data, "labels"))
+            two = VolumeStore.from_arrays(store.images[:2], store.labels[:2])
+            torch.backends.cudnn.deterministic = True
+            t0 = time.perf_counter()
+            out["eval"] = eval_dist_runs(task, two, os.path.join(out_dir, "eval"), scales, mesh,
+                                         dev, TP_EVAL_PATHS)
+            out["eval_wall_s"] = time.perf_counter() - t0
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_reference(leg, dev, control: bool = False) -> dict:
+    """A leg's one-process step on ``dev`` from the same seed-0 weights and
+    eps, under cuDNN's deterministic algorithms as the ranks' checked step:
+    the loss, the gradients before its clip, the parameters after it, ms a
+    step over 4 timed steps; ``control``: the same step with its BatchNorm
+    moments summed in float64 (the gradients only), the one-process step's
+    own f32 floor."""
+    from pmpu_tpu_torch import make_task
+    from pmpu_tpu_torch.data.sampler import sample_batch, sample_batch_vt
+    from pmpu_tpu_torch.train import steps
+
+    _, width, _, acc, layout = leg
+    task = make_task("probunet", num_filters=width, device=dev, seed=0, train=True)
+    state = steps.create_train_state(task, seed=0)
+    step = steps.make_train_step(task, acc_steps=acc,
+                                 sampler=sample_batch_vt if layout == "vt" else sample_batch)
+    args = tp_leg_args(leg, dev)
+    moments = f64_batchnorm_moments() if control else contextlib.nullcontext()
+    with deterministic_cudnn(), moments, pre_clip_grads(task.net) as grads:
+        _, m = step(state, *args)
+    out = {"grads": {k: g.float().cpu() for k, g in grads.items()}}
+    if control:
+        return out
+    out.update(loss=float(m["loss"]), params=param_vector(task.net))
+    out["ms"] = time_steps(step, state, [args[:-1]] * 6)[0] if dev.type == "cuda" else None
+    return out
+
+
+def tp_world(worker_args, n, d, name):
+    """Spawn ``tp_worker`` in a world of ``n`` under ``d/name``; the ranks'
+    results and the wall seconds."""
+    from pmpu_tpu_torch.parallel import spawn_world
+
+    wdir = os.path.join(d, name)
+    os.makedirs(wdir)
+    t0 = time.perf_counter()
+    spawn_world(tp_worker, n, (wdir, *worker_args))
+    return ([torch.load(os.path.join(wdir, f"rank{r}.pt"), weights_only=False)
+             for r in range(n)], time.perf_counter() - t0)
+
+
+def phase_tensor_parallel(card, state_dict, dev="cuda", width=None):
+    """Phase 15: tensor parallelism over the mesh's model axis (see the
+    module docstring). ``state_dict``: phase 9's model. ``dev`` ``"cpu"``
+    rehearses it without a card at ``width`` (legs and evaluation)."""
+    from pmpu_tpu_torch import VolumeEvaluator, make_task
+    from pmpu_tpu_torch.data.volumes import VolumeStore
+
+    width = FULL_WIDTH if width is None else tuple(width)
+    cuda = dev == "cuda"
+    device = torch.device(dev)
+    print("phase 15: tensor parallelism over the model axis")
+    t_phase = time.perf_counter()
+    legs = tp_legs(width)
+    label = ("gloo through the host, ranks sharing one card: not a multi-card speed" if cuda
+             else "CPU rehearsal")
+    out = {"legs": {}}
+    tmp = tempfile.TemporaryDirectory()
+    d = tmp.name
+    try:
+        # the one-process references: each leg's plain step, the evaluator's runs
+        refs = {leg[0]: tp_reference(leg, device) for leg in legs}
+        floors = {leg[0]: grad_diffs(tp_reference(leg, device, control=True)["grads"],
+                                     refs[leg[0]]["grads"])
+                  for leg in legs if leg[0].startswith("full")}
+        data = os.path.join(d, "data")
+        write_labeled_scans(data)
+        ckpt = os.path.join(d, "probunet.pt")
+        torch.save(state_dict, ckpt)
+        task = make_task("probunet", num_filters=width, dtype=torch.bfloat16 if cuda else None,
+                         device=dev, seed=0)
+        task.net.load_state_dict(state_dict)
+        store = VolumeStore.from_dirs(os.path.join(data, "images"), os.path.join(data, "labels"))
+        two = VolumeStore.from_arrays(store.images[:2], store.labels[:2])
+        scales = os.path.join(d, "scales.json")
+        VolumeEvaluator(task, quantize="int8", calibration=scales,
+                        device=dev)._maybe_quantize(sample_vol=two.images[0])
+        det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            ref_eval = eval_dist_runs(task, two, os.path.join(d, "ref"), scales, None, device,
+                                      TP_EVAL_PATHS)
+        finally:
+            torch.backends.cudnn.deterministic = det
+        del task
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # (a) and (c): a 1x2 mesh of 2 gloo ranks; (b): the full-width leg on 2x2
+        (a, a_s) = tp_world(("gloo", (1, 2), legs, (data, ckpt, scales, width), dev), 2, d, "a")
+        (b, b_s) = tp_world(("gloo", (2, 2), legs[1:2], None, dev), 4, d, "b")
+        worlds = {"world2": (a, legs), "world4": (b, legs[1:2])}
+        n_cards = torch.cuda.device_count() if cuda else 0
+        if n_cards >= 2:
+            (nccl, _) = tp_world(("nccl", (1, 2), legs, None, dev), 2, d, "d")
+            worlds["world2_nccl"] = (nccl, legs)
+
+        for world, (ranks, wlegs) in worlds.items():
+            for leg in wlegs:
+                key, w, min_channels, acc, layout = leg
+                got = [r["legs"][key] for r in ranks]
+                ref = refs[key]
+                loss_rel = max(abs(g["loss"] - ref["loss"]) / abs(ref["loss"]) for g in got)
+                diff = (got[0]["params"] - ref["params"]).abs()
+                bound = 1e-4 + 1e-3 * ref["params"].abs()
+                grad_rel, grad_worst, grad_l2 = grad_diffs(got[0]["grads"], ref["grads"])
+                floor = floors.get(key)
+                bounds = TP_GRAD_BOUNDS if floor is None else tuple(
+                    max(b, FULL_WIDTH_F32_FLOORS * f) for b, f in zip(TP_GRAD_BOUNDS,
+                                                                      floor[::2]))
+                print(f"  [{card}] {world} {key}: gradients before the clip against one "
+                      f"process's: max |Δ| / max |g| {grad_rel:.3g} ({grad_worst}), relative "
+                      f"L2 {grad_l2:.3g}; bounds {bounds}"
+                      + ("" if floor is None else
+                         f" (the f64-moment control: {floor[0]:.3g} ({floor[1]}), "
+                         f"{floor[2]:.3g})"))
+                require(max(bounds) < TP_GRAD_BLIND,
+                        f"phase 15 {world} {key}: the gradient bounds {bounds} could not see "
+                        f"a gradient summed twice or never")
+                require(loss_rel <= 1e-4 and bool((diff <= bound).all()),
+                        f"phase 15 {world} {key}: loss rel {loss_rel:.3g}, params max |Δ| "
+                        f"{float(diff.max()):.3g} ({int((diff > bound).sum())} outside 1e-4 + "
+                        f"1e-3·|x|)")
+                require(grad_rel <= bounds[0] and grad_l2 <= bounds[1],
+                        f"phase 15 {world} {key}: the gradients before the clip differ from "
+                        f"one process's: {grad_rel:.3g} of a tensor's max ({grad_worst}), "
+                        f"relative L2 {grad_l2:.3g}, bounds {bounds}")
+                losses = [g["loss"] for g in got]
+                require(len(set(losses)) == 1,
+                        f"phase 15 {world} {key}: the ranks' losses differ {losses}")
+                launches = [g["launches_per_step"] for g in got]
+                want_gather = acc if cuda and layout == "vt" else 0
+                require(all(c["gather_normalize_planes"] == want_gather
+                            and sum(c.values()) == want_gather for c in launches),
+                        f"phase 15 {world} {key}: launches a step {launches}, want gather "
+                        f"{want_gather} on each rank")
+                entry = {"loss": got[0]["loss"], "loss_ref": ref["loss"], "loss_rel": loss_rel,
+                         "params_max_abs_diff": float(diff.max()),
+                         "grad_max_rel_diff": grad_rel, "grad_max_rel_diff_at": grad_worst,
+                         "grad_rel_l2": grad_l2, "grad_bounds": bounds, "grad_floor": floor,
+                         "param_bytes": [g["param_bytes"] for g in got],
+                         "whole_param_bytes": got[0]["whole_param_bytes"],
+                         "ms": [g["ms"] for g in got], "ms_one_process": ref["ms"],
+                         "launches_per_step": launches, "min_channels": min_channels}
+                out["legs"][f"{key}_{world}"] = entry
+                part = "(d)" if world.endswith("nccl") else "(b)" if world == "world4" else "(a)"
+                mb = [round(x / 2**20, 2) for x in entry["param_bytes"]]
+                print(f"  [{card}] {part} {key} ({','.join(map(str, w))}, min_channels "
+                      f"{min_channels}, {layout}, {TP_ROWS} rows at 16² = {acc} x "
+                      f"{TP_ROWS // acc}, f32) on a {'1x2' if len(got) == 2 else '2x2'} mesh "
+                      f"({ranks[0]['backend']}): loss rel {loss_rel:.3g} (bound 1e-4), params "
+                      f"max |Δ| {entry['params_max_abs_diff']:.3g} (bound 1e-4 + 1e-3·|x|) "
+                      f"against one process's step on {dev}; parameter MB a rank {mb} of the "
+                      f"whole model's {entry['whole_param_bytes'] / 2**20:.2f}; ms a step "
+                      f"{[None if x is None else round(x, 2) for x in entry['ms']]} beside one "
+                      f"process's {None if ref['ms'] is None else round(ref['ms'], 2)} "
+                      f"({label}); launches a step on each rank "
+                      f"{[{k: v for k, v in c.items() if v} or 'none' for c in launches]}")
+        if n_cards < 2:
+            print(f"  (d) not run: {n_cards} CUDA device(s) here; (a) under NCCL across two "
+                  "cards needs 2")
+
+        # (c): the evaluator on the 1x2 mesh, bit-equal to one process on each rank
+        launches = {}
+        for path in TP_EVAL_PATHS:
+            one = ref_eval[path]["launches_per_volume"]
+            per_rank = [r["eval"][path]["launches_per_volume"] for r in a]
+            for i, r in enumerate(a):
+                require(same_value(r["eval"][path]["value"], ref_eval[path]["value"]),
+                        f"phase 15 (c) {path}: rank {i}'s result differs from one process's")
+                require(per_rank[i] == one, f"phase 15 (c) {path}: rank {i}'s launches a volume "
+                                            f"{per_rank[i]}, one process's {one}")
+            ran = [k for k, c in one.items() if c]
+            require(not cuda or ran, f"phase 15 (c) {path}: no kernel ran ({one})")
+            launches[path] = {k: [c[k] for c in per_rank] for k in one}
+        s_vol = {p: ([round(r["eval"][p]["s_per_volume"], 4) for r in a],
+                     round(ref_eval[p]["s_per_volume"], 4)) for p in TP_EVAL_PATHS}
+        out["eval"] = {"launches_per_volume": launches, "s_per_volume": s_vol,
+                       "wall_s": [r["eval_wall_s"] for r in a]}
+        print(f"  [{card}] (c) VolumeEvaluator on the 1x2 mesh, probunet "
+              f"{','.join(map(str, width))}, 5 samples, 2 labeled scans: evaluate_store (3 "
+              f"views), int8 and 6 views bit-equal to one process on both ranks under cuDNN's "
+              f"deterministic algorithms; launches a volume on each rank "
+              f"{ {p: {k: v for k, v in c.items() if any(v)} for p, c in launches.items()} }; "
+              f"s/volume (each rank, one process; {label}) {s_vol}")
+        out["world_s"] = {"a": a_s, "b": b_s}
+        out["s"] = time.perf_counter() - t_phase
+        print(f"  phase 15: {out['s']:.1f} s (world of 2 {a_s:.1f} s, of 4 {b_s:.1f} s)")
+    finally:
+        tmp.cleanup()
+    return out
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4016,6 +4424,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     summary["eval_dist"] = phase_eval_dist(card, serve_sd, phase9_report)
     clock.append(("eval_dist", time.perf_counter()))
+    torch.cuda.empty_cache()
+    summary["tensor_parallel"] = phase_tensor_parallel(card, serve_sd)
+    clock.append(("tensor_parallel", time.perf_counter()))
     summary["phase_s"] = {name: b - a for (_, a), (name, b) in zip(clock, clock[1:])}
     summary["phase_s"]["build"] = build_s
     print(f"seconds by phase: { {k: round(v, 1) for k, v in summary['phase_s'].items()} }; "
@@ -4048,6 +4459,12 @@ def main() -> int:
         # per path, each rank of phase 14 (a)'s world of 2
         k["eval_dp_launches_per_volume"] = {
             path: c[count] for path, c in summary["eval_dist"]["a"]["launches_per_volume"].items()}
+        # phase 15, per rank: each leg's step on its mesh, (c)'s evaluator on 1x2
+        tp = summary["tensor_parallel"]
+        k["tp_launches_per_step"] = {leg: [c[count] for c in e["launches_per_step"]]
+                                     for leg, e in tp["legs"].items()}
+        k["tp_eval_launches_per_volume"] = {
+            path: c[count] for path, c in tp["eval"]["launches_per_volume"].items()}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:

@@ -38,16 +38,21 @@ out-of-memory backstop on the first group; either falls back to
 ``evaluate_store``.
 
 Slice-parallel evaluation (``mesh``, JAX :184 and :458-466): with a
-``parallel.Mesh`` of ``data > 1`` ranks (one process each, the default
-process group), every rank builds the whole view slab, normalizes only
-the planes of its contiguous block of the chunk plan's chunks (split as
-``parallel.data_sharding`` splits rows: a rank may get none), runs the
-model on those chunks, chunk i drawing from ``chunk_generator(seed, i)``
-as in one process, and the logits are all-gathered in f32
-(``parallel.gather_blocks``) before the softmax and the fusion, which
-every rank then computes alike: the results are one process's bit for
-bit. Rank 0 alone writes files (exports, the int8 scale file). Every rank
-must call the same entry points in the same order.
+``parallel.Mesh`` of the default process group's ranks (one process each)
+of ``data > 1``, every rank builds the whole view slab, normalizes only
+the planes of its data index's contiguous block of the chunk plan's chunks
+(split as ``parallel.data_sharding`` splits rows: a block may be empty),
+runs the model on those chunks, chunk i drawing from
+``chunk_generator(seed, i)`` as in one process, and the logits are
+all-gathered in f32 (``parallel.gather_blocks``) before the softmax and
+the fusion, which every rank then computes alike: the results are one
+process's bit for bit. On a ``data × model`` mesh every model index of a
+data row runs its row's chunks with the whole weights (as XLA runs a
+``pallas_call``, whose operands it cannot partition, on the slab sharded
+over ``data`` and replicated over ``model``), and the gather runs over the
+rank's data column, which holds one copy of each block. Rank 0 alone
+writes files (exports, the int8 scale file). Every rank must call the same
+entry points in the same order.
 """
 
 from __future__ import annotations
@@ -224,9 +229,11 @@ class VolumeEvaluator:
               padded cube with the identity affine (the reference's exports)
       device: None means "cuda"; raises without a CUDA device unless "cpu"
       mesh: a ``parallel.Mesh`` of the default process group's ranks; with
-              ``data > 1`` each rank runs its block of every slab's chunks
-              and the logits are all-gathered (slice-parallel evaluation);
-              None or ``data == 1``: this process runs every chunk
+              ``data > 1`` each data index runs its block of every slab's
+              chunks (each model index of it alike, with the whole
+              weights) and the logits are all-gathered (slice-parallel
+              evaluation); None or ``data == 1``: this process runs every
+              chunk
     """
 
     def __init__(
@@ -244,7 +251,7 @@ class VolumeEvaluator:
         mesh=None,
     ):
         self.device = resolve_device(device)
-        if mesh is not None and mesh.data > 1 and mesh.size != world()[1]:
+        if mesh is not None and mesh.size > 1 and mesh.size != world()[1]:
             raise ValueError(f"the mesh spans {mesh.size} ranks, the world has {world()[1]}")
         self.mesh = mesh
         self._split_shapes = set()  # the slab shapes whose chunk block was logged
@@ -456,14 +463,14 @@ class VolumeEvaluator:
         v, total, h, w = slabs.shape
         b, nchunk = eval_chunk_plan(total, h, w, self.eval_batch)
         if self._split():
-            sizes = [len(range(nchunk)[data_sharding(self.mesh, nchunk, r)])
-                     for r in range(self.mesh.data)]
+            sizes = [len(range(nchunk)[data_sharding(self.mesh, nchunk, d)])
+                     for d in range(self.mesh.data)]
             mine = range(nchunk)[data_sharding(self.mesh, nchunk)]
             if (v, total, h, w) not in self._split_shapes:
                 self._split_shapes.add((v, total, h, w))
                 logging.info("rank %d of %d: chunks [%d, %d) of %d (%d slices each) of a "
-                             "%dx%dx%dx%d slab", world()[0], self.mesh.data, mine.start,
-                             mine.stop, nchunk, b, v, total, h, w)
+                             "%dx%dx%dx%d slab", self.mesh.data_index, self.mesh.data,
+                             mine.start, mine.stop, nchunk, b, v, total, h, w)
         else:
             mine = range(nchunk)
         lo, hi = mine.start * b, min(mine.stop * b, total)
@@ -482,8 +489,9 @@ class VolumeEvaluator:
             xi = x[:, k * b : (k + 1) * b].reshape(v * b, h, w, 1)
             li = self._model_logits(xi, gens, per_sample).unflatten(ax, (v, b))
             logits.narrow(ax + 1, k * b, b).copy_(li)
-        if self._split():
-            logits = gather_blocks(logits, [n * b for n in sizes], dim=ax + 1)
+        if self._split():  # each block once: over this rank's data column
+            logits = gather_blocks(logits, [n * b for n in sizes], dim=ax + 1,
+                                   group=self.mesh.data_group)
         return logits.narrow(ax + 1, 0, total)
 
     def _to_probs(self, outputs: torch.Tensor) -> torch.Tensor:

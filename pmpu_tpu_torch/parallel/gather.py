@@ -4,7 +4,8 @@
 slab's logits for the fusion).
 
 * :func:`gather_blocks` — the ranks' blocks of rows, of different lengths,
-  concatenated in rank order on every rank: each block padded to the
+  concatenated in rank order on every rank of a group (the world, a
+  mesh's data column or its model row): each block padded to the
   longest (``all_gather`` needs equal sizes), gathered in f32 so that no
   rounding point moves, and cut back. NCCL gathers on the card; gloo on
   the host, so a CUDA tensor goes through host memory.
@@ -26,13 +27,16 @@ def is_lead() -> bool:
     return world()[0] == 0
 
 
-def gather_blocks(local: torch.Tensor, counts, dim: int = 0) -> torch.Tensor:
+def gather_blocks(local: torch.Tensor, counts, dim: int = 0, group=None) -> torch.Tensor:
     """Every rank's ``local`` along ``dim`` concatenated in rank order, on
-    every rank: rank r holds ``counts[r]`` rows there (0 allowed), the other
-    axes equal on every rank. The result has ``local``'s dtype and device;
-    the exchange runs in f32; the result is contiguous. Without a process
-    group it is ``local``."""
-    rank, size = world()
+    every rank of ``group`` (default: the whole world): its rank r holds
+    ``counts[r]`` rows there (0 allowed), the other axes equal on every
+    rank. The result has ``local``'s dtype and device; the exchange runs in
+    f32; the result is contiguous. Without a process group, or in a group
+    of one rank, it is ``local``."""
+    if world()[1] == 1:
+        return local
+    rank, size = dist.get_rank(group), dist.get_world_size(group)
     if size == 1:
         return local
     if len(counts) != size or local.shape[dim] != counts[rank]:
@@ -42,9 +46,9 @@ def gather_blocks(local: torch.Tensor, counts, dim: int = 0) -> torch.Tensor:
     x = local.movedim(dim, 0).float()
     if x.shape[0] < longest:
         x = torch.cat([x, x.new_zeros((longest - x.shape[0],) + x.shape[1:])])
-    on_host = dist.get_backend() != "nccl" and x.is_cuda
+    on_host = dist.get_backend(group) != "nccl" and x.is_cuda
     x = (x.cpu() if on_host else x).contiguous()
     blocks = [torch.empty_like(x) for _ in range(size)]
-    dist.all_gather(blocks, x)
+    dist.all_gather(blocks, x, group=group)
     out = torch.cat([blk[:n] for blk, n in zip(blocks, counts)])
     return out.to(local.device, local.dtype).movedim(0, dim).contiguous()

@@ -1,18 +1,25 @@
-"""Ranks and their process group (counterpart of ``pmpu_tpu/parallel/mesh.py``).
+"""Ranks and their process groups (counterpart of ``pmpu_tpu/parallel/mesh.py``).
 
 The JAX package expresses scaling as a ``jax.sharding.Mesh`` over devices
 with a ``data`` and a ``model`` axis, and XLA inserts the collectives. The
 port runs one process a card (a rank) under ``torch.distributed``: NCCL
 between cards, gloo between CPU processes (the tests). A :class:`Mesh` here
-is the ranks of the default process group laid out as ``data × model``;
-only ``model == 1`` is ported (tensor parallelism is not, ROADMAP.md).
+is the ranks of the default process group laid out as ``data × model``:
+rank r sits at data index ``r // model`` and model index ``r % model``, as
+JAX's ``reshape(data, model)`` of the device list (:29) places device r.
+With ``model > 1`` the mesh holds two process groups of this rank, made
+once by :func:`make_mesh`: its data column (the ranks of its model index,
+over which batches are split and gradients summed) and its model row (the
+ranks of its data index, over which channels are sharded,
+``parallel/tensor.py``). With ``model == 1`` the data column is the
+default process group.
 
 * :func:`init_distributed` — the counterpart of ``multihost_init`` (:42):
   joins the world that ``torchrun`` (or :func:`spawn_world`) describes in
   the environment, a no-op returning ``(0, 1)`` without one.
-* :func:`data_sharding` — this rank's block of a batch's rows, split as
+* :func:`data_sharding` — a data index's block of a batch's rows, split as
   ``torch.tensor_split`` splits them (the first ``n % data`` blocks one row
-  longer; a rank may get none).
+  longer; a block may be empty).
 * :func:`replicated` — rank 0's values of a module's parameters and
   buffers on every rank (one broadcast of one flat buffer).
 * :func:`next_world_env` — what a re-exec of every rank (the train CLI's
@@ -29,7 +36,7 @@ from __future__ import annotations
 
 import os
 import socket
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 import torch.distributed as dist
@@ -130,11 +137,21 @@ def spawn_world(fn, nprocs: int, args=()) -> None:
 
 
 @dataclass(frozen=True)
+class _Groups:
+    """This rank's process groups on a ``data × model`` mesh."""
+
+    data: object  # its data column: the ranks of its model index
+    model: object  # its model row: the ranks of its data index
+
+
+@dataclass(frozen=True)
 class Mesh:
-    """``data × model`` ranks of the default process group."""
+    """``data × model`` ranks of the default process group; ``groups`` are
+    this rank's (None with ``model == 1``)."""
 
     data: int
     model: int = 1
+    groups: _Groups | None = field(default=None, compare=False, repr=False)
 
     @property
     def shape(self) -> dict:
@@ -144,11 +161,33 @@ class Mesh:
     def size(self) -> int:
         return self.data * self.model
 
+    @property
+    def data_index(self) -> int:
+        return world()[0] // self.model
+
+    @property
+    def model_index(self) -> int:
+        return world()[0] % self.model
+
+    @property
+    def data_group(self):
+        """The process group over the data axis (None: the default group)."""
+        return None if self.groups is None else self.groups.data
+
+    @property
+    def model_group(self):
+        return None if self.groups is None else self.groups.model
+
+    def __deepcopy__(self, memo):
+        return self  # immutable; its process groups are not copied
+
 
 def make_mesh(data: int = -1, model: int = 1) -> Mesh:
     """A ``(data, model)`` mesh of the world's ranks; ``data=-1`` takes all
-    the ranks ``model`` leaves (JAX :17, the same checks). ``model > 1``
-    raises ``NotImplementedError``: tensor parallelism is not ported."""
+    the ranks ``model`` leaves (JAX :17, the same checks). With ``model >
+    1`` every rank makes the ``model`` data columns, then the ``data`` model
+    rows, in that order (``dist.new_group`` is a collective of the whole
+    world), and keeps its own: every rank must call it alike."""
     n = world()[1]
     if data == -1:
         if n % model:
@@ -156,18 +195,21 @@ def make_mesh(data: int = -1, model: int = 1) -> Mesh:
         data = n // model
     if data * model > n:
         raise ValueError(f"mesh {data}x{model} exceeds {n} ranks")
-    if model != 1:
-        raise NotImplementedError(
-            f"make_mesh(model={model}): tensor parallelism over the 'model' axis is not "
-            "ported to pmpu_tpu_torch (ROADMAP.md queue 1)")
-    return Mesh(data, model)
+    if model == 1:
+        return Mesh(data)
+    rank = world()[0]
+    columns = [dist.new_group([d * model + m for d in range(data)]) for m in range(model)]
+    rows = [dist.new_group([d * model + m for m in range(model)]) for d in range(data)]
+    groups = _Groups(columns[rank % model], rows[rank // model]) if rank < data * model else None
+    return Mesh(data, model, groups)
 
 
-def data_sharding(mesh: Mesh, n: int, rank: int | None = None) -> slice:
-    """The rows of a batch of ``n`` that rank ``rank`` (default: this one)
-    holds on the mesh's data axis, as ``torch.tensor_split(rows,
-    mesh.data)`` gives them: the first ``n % data`` ranks one row more."""
-    r = world()[0] if rank is None else rank
+def data_sharding(mesh: Mesh, n: int, index: int | None = None) -> slice:
+    """The rows of a batch of ``n`` that data index ``index`` (default: this
+    rank's, ``mesh.data_index``) holds, as ``torch.tensor_split(rows,
+    mesh.data)`` gives them: the first ``n % data`` indices one row more.
+    Every model index of a data index holds the same rows."""
+    r = mesh.data_index if index is None else index
     base, extra = divmod(n, mesh.data)
     start = r * base + min(r, extra)
     return slice(start, start + base + (r < extra))

@@ -1,6 +1,17 @@
-"""Multi-rank train and eval steps (counterpart of
-``pmpu_tpu/parallel/sharding.py``: ``make_dp_train_step`` :74,
+"""The sharding rules and the multi-rank train and eval steps (counterpart
+of ``pmpu_tpu/parallel/sharding.py``: ``param_spec`` :23,
+``make_param_shardings`` :35, ``make_state_shardings`` :47,
+``shard_state`` :68, ``make_dp_train_step`` :74,
 ``make_hostlocal_dp_train_step`` :117, ``make_hostlocal_eval_step`` :163).
+
+* **The rules**: :func:`param_spec` gives each state_dict tensor its spec
+  in torch layout (``("model", None, None, None)``, ``("model",)`` or
+  ``()``, JAX's ``PartitionSpec`` with the exported tensor's axes);
+  :func:`make_state_shardings` mirrors the parameters' specs on the SGD
+  momentum buffers and replicates the step and the generator;
+  :func:`shard_state` cuts this rank's slices of a whole ``TrainState``
+  (``parallel/tensor.py::tensor_parallel``) and :func:`gather_state` builds the
+  whole state back on every rank (what a checkpoint writes).
 
 Both train steps are ``train/steps.py::make_train_step`` with a
 ``parallel`` object that says which rows of a microbatch this rank runs
@@ -42,6 +53,18 @@ the tree the same way.
 * :func:`sum_values`: host values summed over the ranks (the loop's
   data-parallel validation sums, its interrupt flag at an epoch's end).
 
+* **Tensor parallel** (:func:`make_dp_train_step` on a mesh of ``model >
+  1``; no CLI flag, as JAX's loop builds its meshes with ``model=1``): the
+  state is channel-sharded over each model row (:func:`shard_state`); the
+  rows of a microbatch are split by data index, so every rank of a data
+  row runs the same rows with the same eps and augmentation draws; the
+  BatchNorm moments, the loss shares and the gradients (each rank its own
+  slices) are summed over the data column only; the clip stays elementwise
+  (``optax.clip(0.1)``), so no norm crosses a row; the metrics are then
+  equal on every rank, and the interrupt flag is summed over the row too.
+  The host-local steps require ``model == 1``: JAX's loop builds their
+  mesh with ``model=1`` (``pmpu_tpu/train/loop.py:140``).
+
 In a world of 1 (no process group needed) nothing is reduced: both train
 steps are then the one-device step.
 """
@@ -49,6 +72,7 @@ steps are then the one-device step.
 from __future__ import annotations
 
 import contextlib
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -58,7 +82,98 @@ from pmpu_tpu_torch.data.sampler import sample_batch
 from pmpu_tpu_torch.models.unet import BatchNorm2d
 from pmpu_tpu_torch.ops.metrics import per_class_dice
 from pmpu_tpu_torch.parallel.mesh import Mesh, data_sharding, world
-from pmpu_tpu_torch.train.steps import make_train_step
+from pmpu_tpu_torch.parallel.tensor import (
+    gather_dim0,
+    gather_module,
+    is_tensor_parallel,
+    model_block,
+    tensor_parallel,
+)
+from pmpu_tpu_torch.train.steps import TrainState, make_optimizer, make_train_step
+
+
+def param_spec(shape, model_size: int, min_channels: int = 64) -> tuple:
+    """The spec of one state_dict tensor (JAX :23 on the exported tree): dim
+    0 of a 4-D kernel or of a 1-D tensor sharded over ``model`` when it is
+    divisible by ``model_size`` and at least ``min_channels`` wide; ``()``
+    replicates. ``export_torch_state_dict`` maps every kernel by
+    ``transpose(3, 2, 0, 1)``, so JAX's last axis is dim 0 here: a conv's
+    output channels, a transposed conv's input channels."""
+    if len(shape) in (1, 4) and shape[0] % model_size == 0 and shape[0] >= min_channels:
+        return ("model",) + (None,) * (len(shape) - 1)
+    return ()
+
+
+def make_param_shardings(state_dict, mesh: Mesh, min_channels: int = 64) -> dict:
+    """{name: spec} of a whole state_dict (the parameters and the BatchNorm
+    statistics: JAX's params and batch_stats); all ``()`` with ``model == 1``."""
+    return {k: () if mesh.model == 1 else param_spec(tuple(v.shape), mesh.model, min_channels)
+            for k, v in state_dict.items()}
+
+
+@dataclass(frozen=True)
+class StateShardings:
+    """The specs of a ``TrainState`` (:func:`make_state_shardings`); its
+    step and generator are replicated."""
+
+    mesh: Mesh
+    min_channels: int
+    net: dict  # state_dict name → spec
+    momentum: dict  # parameter name → spec (its parameter's)
+
+
+def make_state_shardings(state, mesh: Mesh, min_channels: int = 64) -> StateShardings:
+    """The specs of a whole ``TrainState``: parameters and BatchNorm
+    statistics by the rule, each momentum buffer its parameter's; the step
+    and the generator replicated (JAX :47)."""
+    if is_tensor_parallel(state.net) is not None:
+        raise ValueError("make_state_shardings takes the whole state; this one is sharded")
+    net = make_param_shardings(state.net.state_dict(), mesh, min_channels)
+    momentum = {n: net[n] for n, p in state.net.named_parameters() if p.requires_grad}
+    return StateShardings(mesh, min_channels, net, momentum)
+
+
+def _momentum(state) -> list:
+    """(name, parameter, its momentum buffer or None) in parameter order."""
+    names = {p: n for n, p in state.net.named_parameters()}
+    return [(names[p], p, state.optimizer.state.get(p, {}).get("momentum_buffer"))
+            for p in state.params]
+
+
+def shard_state(state, shardings: StateShardings):
+    """This rank's slices of a whole ``TrainState``, in place (the network
+    through ``tensor.tensor_parallel``, each sharded momentum buffer cut
+    like its parameter); returns it."""
+    mesh = shardings.mesh
+    if mesh.model == 1:
+        return state
+    tensor_parallel(state.net, mesh, shardings.min_channels)
+    for name, p, buf in _momentum(state):
+        if buf is not None and shardings.momentum[name]:
+            state.optimizer.state[p]["momentum_buffer"] = model_block(buf, mesh, 0).clone()
+    return state
+
+
+def gather_state(state, shardings: StateShardings) -> TrainState:
+    """The whole ``TrainState`` of a sharded one, on every rank (a
+    collective of the mesh): a copy of the network with every sharded
+    tensor gathered, SGD at the same momentum and learning rate with the
+    gathered momentum buffers, a copy of the generator, the step. Bit-equal
+    to the state that :func:`shard_state` cut."""
+    if shardings.mesh.model == 1:
+        return state
+    net = gather_module(state.net, shardings.net)
+    group = state.optimizer.param_groups[0]
+    optimizer = make_optimizer([p for p in net.parameters() if p.requires_grad],
+                               group["momentum"], group["lr"])
+    whole = dict(net.named_parameters())
+    for name, _, buf in _momentum(state):
+        if buf is not None:
+            buf = gather_dim0(buf, shardings.mesh) if shardings.momentum[name] else buf.clone()
+            optimizer.state[whole[name]]["momentum_buffer"] = buf
+    generator = torch.Generator(device=state.generator.device)
+    generator.set_state(state.generator.get_state())
+    return TrainState(net, optimizer, generator, state.step)
 
 
 def rank_seed(seed: int, rank: int, step: int = 0) -> int:
@@ -69,19 +184,22 @@ def rank_seed(seed: int, rank: int, step: int = 0) -> int:
 
 
 def _check_world(mesh: Mesh) -> int:
-    rank, size = world()
+    """This rank's data index on ``mesh``, which must span the world."""
+    size = world()[1]
     if mesh.size != size:
         raise ValueError(f"the mesh spans {mesh.size} ranks, the world has {size}")
-    return rank
+    return mesh.data_index
 
 
 class BatchShare:
     """This rank's ``n_local`` of a batch of ``n_global`` rows split over
-    the ranks of the default process group."""
+    the ranks of ``group`` (None: the default process group) of ``size``
+    ranks (None: the world's)."""
 
-    def __init__(self, n_local: int, n_global: int):
+    def __init__(self, n_local: int, n_global: int, group=None, size: int | None = None):
         self.frac = n_local / n_global
-        self.world = world()[1]
+        self.group = group
+        self.world = world()[1] if size is None else size
 
     def mean(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's additive share of the global batch's mean of ``x``
@@ -91,7 +209,7 @@ class BatchShare:
 
     def total(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` summed over the ranks, with gradients to every rank's ``x``."""
-        return _AllReduceSum.apply(x)[0]
+        return _AllReduceSum.apply(self.group, x)[0]
 
     def whole(self, value: torch.Tensor) -> torch.Tensor:
         """This rank's share of a value that every rank computes alike from
@@ -107,33 +225,36 @@ class BatchShare:
             return (t.mean(dim=dim) if t.numel() else t.sum(dim=dim)) * self.frac
 
         m1 = local(x)
-        return _AllReduceSum.apply(m1, local(x * x))
+        return _AllReduceSum.apply(self.group, m1, local(x * x))
 
 
 class _AllReduceSum(torch.autograd.Function):
     """Tensors of one shape summed over the ranks in one all-reduce, each
     output's gradient the ranks' sum of the gradients (one node, so that
-    the graph around it keeps the order of the unsynchronized one). Without
-    a process group the sum is over this process alone."""
+    the graph around it keeps the order of the unsynchronized one), over the
+    ranks of ``group`` (None: the default process group). Without a process
+    group the sum is over this process alone."""
 
     @staticmethod
-    def forward(ctx, *xs):
+    def forward(ctx, group, *xs):
+        ctx.group = group
         buf = torch.stack(xs)
-        _sum_over_ranks(buf)
+        _sum_over_ranks(buf, group)
         return tuple(t.clone() for t in buf.unbind())
 
     @staticmethod
     def backward(ctx, *grads):
         buf = torch.stack(grads)
-        _sum_over_ranks(buf)
-        return buf.unbind()
+        _sum_over_ranks(buf, ctx.group)
+        return (None, *buf.unbind())
 
 
-def _sum_over_ranks(t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over the ranks in place (an all-reduce); nothing in a
-    world of 1, which needs no process group."""
-    if world()[1] > 1:
-        dist.all_reduce(t)
+def _sum_over_ranks(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t`` summed over the ranks of ``group`` (None: the default process
+    group) in place (an all-reduce); nothing over one rank, which needs no
+    process group."""
+    if (world()[1] if group is None else dist.get_world_size(group)) > 1:
+        dist.all_reduce(t, group=group)
     return t
 
 
@@ -151,12 +272,13 @@ def synced_batchnorm(net: torch.nn.Module, share: BatchShare):
             del m.sync  # back to the class's None
 
 
-def _all_reduce_step(state, tensors, metrics: dict, stop: bool, mean: bool) -> dict:
-    """One all-reduce (sum) of the present gradients of ``state``, then
-    ``tensors``, then ``metrics`` and the interrupt flag, over one flat f32
-    buffer; ``mean`` divides by the world. The reduced values are written
-    back; returns the metrics with ``"stop"`` (1.0 when a rank was
-    interrupted)."""
+def _all_reduce_step(state, tensors, metrics: dict, stop: bool, mean: bool,
+                     group=None) -> dict:
+    """One all-reduce (sum) over ``group`` (None: the default process group)
+    of the present gradients of ``state``, then ``tensors``, then
+    ``metrics`` and the interrupt flag, over one flat f32 buffer; ``mean``
+    divides by the world. The reduced values are written back; returns the
+    metrics with ``"stop"`` (1.0 when a rank was interrupted)."""
     grads = [p.grad for p in state.params if p.grad is not None]
     keys = sorted(metrics)
     device = grads[0].device
@@ -164,7 +286,7 @@ def _all_reduce_step(state, tensors, metrics: dict, stop: bool, mean: bool) -> d
                          torch.tensor(float(bool(stop)), device=device)])
     parts = [*grads, *tensors]
     flat = torch.cat([t.reshape(-1).float() for t in parts] + [flags])
-    _sum_over_ranks(flat)
+    _sum_over_ranks(flat, group)
     size = world()[1]
     if mean and size > 1:
         flat /= size
@@ -182,15 +304,15 @@ class _DataParallel:
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
-        self.rank = _check_world(mesh)
+        self.index = _check_world(mesh)
 
     def take(self, x):
-        """This rank's rows of a microbatch-sized tensor."""
-        return x[data_sharding(self.mesh, x.shape[0], self.rank)]
+        """This data index's rows of a microbatch-sized tensor."""
+        return x[data_sharding(self.mesh, x.shape[0], self.index)]
 
     def share(self, micro: int) -> BatchShare:
-        rows = data_sharding(self.mesh, micro, self.rank)
-        return BatchShare(rows.stop - rows.start, micro)
+        rows = data_sharding(self.mesh, micro, self.index)
+        return BatchShare(rows.stop - rows.start, micro, self.mesh.data_group, self.mesh.data)
 
     def context(self, net, share):
         return synced_batchnorm(net, share)
@@ -198,13 +320,17 @@ class _DataParallel:
     def reduce(self, state, metrics, stop):
         # the running statistics came from all-reduced batch statistics:
         # they are equal on every rank already
-        return _all_reduce_step(state, [], metrics, stop, mean=False)
+        out = _all_reduce_step(state, [], metrics, stop, mean=False, group=self.mesh.data_group)
+        if self.mesh.model > 1:  # a stop on any rank of the row
+            out["stop"] = (_sum_over_ranks(out["stop"].clone(), self.mesh.model_group) > 0).float()
+        return out
 
 
 class _HostLocal:
     """``make_train_step``'s ``parallel`` for the host-local step."""
 
     def __init__(self, mesh: Mesh):
+        _require_data_only(mesh, "make_hostlocal_dp_train_step")
         self.mesh = mesh
         _check_world(mesh)
 
@@ -221,13 +347,30 @@ class _HostLocal:
         return _all_reduce_step(state, list(state.net.buffers()), metrics, stop, mean=True)
 
 
+def _require_data_only(mesh: Mesh, what: str):
+    if mesh.model != 1:
+        raise NotImplementedError(
+            f"{what}: model={mesh.model}: the host-local steps run on a mesh of model=1 "
+            "(JAX's loop builds theirs with make_mesh(), pmpu_tpu/train/loop.py:140)")
+
+
 def make_dp_train_step(task, mesh: Mesh, acc_steps: int = 1, sampler=sample_batch,
                        augment=None, remat: bool = False):
     """The data-parallel train step: ``step(state, images, labels, triples,
     lr, eps=None, draws=None, stop=False) → (state, metrics)`` with the
     whole stacks and the global (acc_steps·micro, 3) rows on every rank;
     ``eps`` and ``draws`` (injected) are the global microbatches' too.
-    ``metrics`` are the global step's, plus ``"stop"``."""
+    ``metrics`` are the global step's, plus ``"stop"``. On a mesh of
+    ``model > 1`` the task's network must be channel-sharded over it
+    (``shard_state(state, make_state_shardings(state, mesh,
+    min_channels))``, as JAX's ``jit_for(state)`` is followed by
+    ``shard_state``)."""
+    layout = is_tensor_parallel(task.net)
+    if mesh.model > 1 and (layout is None or layout[0] != mesh):
+        raise ValueError(
+            f"make_dp_train_step on a {mesh.data}x{mesh.model} mesh: the network is not "
+            "channel-sharded over it; shard_state(state, make_state_shardings(state, mesh, "
+            "min_channels)) first")
     return make_train_step(task, acc_steps=acc_steps, sampler=sampler, augment=augment,
                            remat=remat, parallel=_DataParallel(mesh))
 
@@ -249,6 +392,7 @@ def make_hostlocal_eval_step(task, mesh: Mesh):
     volume block; the loss and the Dice are the ranks' weighted mean with
     ``weight`` this rank's real rows (one all-reduce), preds, img and msk
     this rank's."""
+    _require_data_only(mesh, "make_hostlocal_eval_step")
     _check_world(mesh)
 
     @torch.no_grad()

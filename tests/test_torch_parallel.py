@@ -408,8 +408,9 @@ def test_train_cli_in_a_world_of_2(tmp_path):
 
 
 def test_mesh_and_row_blocks(monkeypatch):
-    """``make_mesh`` checks its arguments as JAX's does; ``model > 1`` is
-    refused by name; ``data_sharding`` splits as ``torch.tensor_split``."""
+    """``make_mesh`` checks its arguments as JAX's does; ``model=2`` on a
+    world of 2 is a 1×2 mesh with this rank's data column and model row;
+    ``data_sharding`` splits as ``torch.tensor_split``."""
     assert make_mesh() == Mesh(1, 1)  # no process group: a world of 1
     monkeypatch.setattr(mesh_mod, "world", lambda: (0, 4))  # rank 0 of a world of 4
     assert make_mesh() == Mesh(4, 1) and make_mesh(2).shape == {"data": 2, "model": 1}
@@ -417,8 +418,12 @@ def test_mesh_and_row_blocks(monkeypatch):
         make_mesh(8)
     with pytest.raises(ValueError, match="not divisible by model=3"):
         make_mesh(model=3)
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        make_mesh(model=2)
+    monkeypatch.setattr(mesh_mod, "world", lambda: (1, 2))  # rank 1 of a world of 2
+    monkeypatch.setattr(torch.distributed, "new_group", tuple)
+    mesh = make_mesh(model=2)
+    assert mesh == Mesh(1, 2) and mesh.shape == {"data": 1, "model": 2}
+    assert (mesh.data_index, mesh.model_index) == (0, 1)
+    assert mesh.data_group == (1,) and mesh.model_group == (0, 1)
     monkeypatch.undo()
     rows = torch.arange(30)
     for world in (1, 2, 3, 4, 7):

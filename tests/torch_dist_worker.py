@@ -1,6 +1,7 @@
 """The ranks of a CPU world (gloo) for the port's multi-process tests
 (``tests/test_torch_parallel.py``, ``tests/test_torch_hostdata.py``,
-``tests/test_torch_eval_parallel.py``, ``tests/test_torch_rss_world.py``).
+``tests/test_torch_eval_parallel.py``, ``tests/test_torch_rss_world.py``,
+``tests/test_torch_tensor_parallel.py``).
 
     python -m tests.torch_dist_worker WORLD IODIR
 
@@ -10,6 +11,7 @@ port, join one world and run the cases in order; rank r writes
 ``IODIR/rank{r}.pkl``, one result a case. Imports torch and the port only.
 """
 
+import contextlib
 import os
 import pickle
 import subprocess
@@ -69,11 +71,104 @@ def run_step(case, rank, size):
         state, m = step(state, ti, tl, torch.from_numpy(triples), lr,
                         None if eps is None else torch.from_numpy(eps))
         metrics.append({key: float(v) for key, v in m.items()})
-    names = {p: n for n, p in task.net.named_parameters()}
-    momentum = {names[p]: s["momentum_buffer"].numpy().copy()
-                for p, s in state.optimizer.state.items()}
-    return {"metrics": metrics, "state": _state_np(task.net), "momentum": momentum,
+    return {"metrics": metrics, **_whole_state_np(state),
             "generator": state.generator.get_state().numpy()}
+
+
+@contextlib.contextmanager
+def _pre_clip_grads(state):
+    """Inside: the step's gradients before its clip, by parameter name, are
+    copied into the dict yielded (the first clip's)."""
+    names = {p: n for n, p in state.net.named_parameters()}
+    clip, seen = torch.nn.utils.clip_grad_value_, {}
+
+    def spy(params, value):
+        if not seen:
+            seen.update({names[p]: p.grad.detach().clone() for p in params
+                         if p.grad is not None})
+        return clip(params, value)
+
+    torch.nn.utils.clip_grad_value_ = spy
+    try:
+        yield seen
+    finally:
+        torch.nn.utils.clip_grad_value_ = clip
+
+
+def _whole_state_np(state):
+    """A whole ``TrainState``'s state_dict and momentum buffers as numpy."""
+    names = {p: n for n, p in state.net.named_parameters()}
+    return {"state": _state_np(state.net),
+            "momentum": {names[p]: s["momentum_buffer"].numpy().copy()
+                         for p, s in state.optimizer.state.items()}}
+
+
+def run_tp_step(case, rank, size):
+    """Train steps of the data-parallel step on a ``case["mesh"]`` (data,
+    model) mesh with the state channel-sharded at ``case["min_channels"]``,
+    from a state_dict, eps injected. Per step its metrics; then this rank's
+    tensors (``local``), the gathered whole state, the first step's
+    gradients before the clip (gathered), the generator; the whole state
+    again after ``shard_state`` and ``gather_state`` of it
+    (``round_trip``); with ``case["resume"]`` (``{"eps": the eps of one
+    more step at the last rows, or None}``) that step from the state as it
+    is (``next``) and from the gathered state through a checkpoint file,
+    restored and sharded (``resumed``)."""
+    from pmpu_tpu_torch.data import sampler as sm
+    from pmpu_tpu_torch.parallel import (
+        gather_state,
+        make_dp_train_step,
+        make_mesh,
+        make_state_shardings,
+        shard_state,
+    )
+    from pmpu_tpu_torch.parallel.tensor import gather_dim0
+    from pmpu_tpu_torch.train import checkpoint as ckpt
+    from pmpu_tpu_torch.train import steps
+
+    sampler = sm.sample_batch_vt if case.get("layout") == "vt" else sm.sample_batch
+    mesh = make_mesh(*case["mesh"])
+    ti, tl = torch.from_numpy(case["images"]), torch.from_numpy(case["labels"])
+
+    def sharded_state(path=None):
+        """The case's state (restored from ``path``), sharded, and its step."""
+        task = _task(case)
+        state = steps.create_train_state(task, momentum=0.9, seed=case.get("seed", 0))
+        if path is not None:
+            ckpt.restore_train_state(path, state)
+        sh = make_state_shardings(state, mesh, case["min_channels"])
+        shard_state(state, sh)
+        step = make_dp_train_step(task, mesh, acc_steps=case["acc"], sampler=sampler)
+        return state, sh, step
+
+    def run(state, step, k, eps):
+        _, m = step(state, ti, tl, torch.from_numpy(case["triples"][k]), case["lrs"][k],
+                    None if eps is None else torch.from_numpy(eps))
+        return {key: float(v) for key, v in m.items()}
+
+    state, sh, step = sharded_state()
+    eps = [None] * len(case["lrs"]) if case.get("eps") is None else case["eps"]
+    with _pre_clip_grads(state) as grads:
+        metrics = [run(state, step, 0, eps[0])]
+    metrics += [run(state, step, k, eps[k]) for k in range(1, len(case["lrs"]))]
+    out = {"metrics": metrics, "local": _state_np(state.net),
+           "grads": {k: (gather_dim0(g, mesh) if sh.net[k] else g).numpy()
+                     for k, g in grads.items()},
+           "specs": {k: v for k, v in sh.net.items() if v},
+           "generator": state.generator.get_state().numpy()}
+    whole = gather_state(state, sh)
+    out.update(_whole_state_np(whole))
+    out["round_trip"] = _whole_state_np(gather_state(shard_state(whole, sh), sh))
+    if "resume" in case:
+        path = os.path.join(case["cwd"], f"rank{rank}.pkl")
+        os.makedirs(case["cwd"], exist_ok=True)
+        ckpt.save_checkpoint(path, gather_state(state, sh))
+        k = len(case["lrs"]) - 1
+        for key, (st, stp) in (("next", (state, step)), ("resumed", sharded_state(path)[::2])):
+            m = run(st, stp, k, case["resume"]["eps"])
+            out[key] = {"metrics": m, "step": st.step,
+                        **_whole_state_np(gather_state(st, sh))}
+    return out
 
 
 def run_eval(case, rank, size):
@@ -155,8 +250,9 @@ def run_train_net(case, rank, size):
 
 
 def run_evaluator(case, rank, size):
-    """The slice-parallel ``VolumeEvaluator`` (a mesh of every rank) from a
-    state_dict: each op of ``case["ops"]`` in order, its result as numpy.
+    """The slice-parallel ``VolumeEvaluator`` (a mesh of every rank, or
+    ``case["mesh"]`` (data, model)) from a state_dict: each op of
+    ``case["ops"]`` in order, its result as numpy.
     Exports and the int8 scale file go under ``case["cwd"]``, the same
     paths on every rank (rank 0 alone writes)."""
     from pmpu_tpu_torch.data.volumes import VolumeStore
@@ -170,7 +266,7 @@ def run_evaluator(case, rank, size):
     kw = dict(case.get("ev", {}))
     if "calibration" in kw:
         kw["calibration"] = os.path.join(case["cwd"], kw["calibration"])
-    ev = VolumeEvaluator(task, device="cpu", mesh=make_mesh(), **kw)
+    ev = VolumeEvaluator(task, device="cpu", mesh=make_mesh(*case.get("mesh", ())), **kw)
     out = []
     for op, args in case["ops"]:
         if op == "volume":
@@ -223,7 +319,8 @@ def run_global_batch(case, rank, size):
     return make_global_batch(case["rows"][rank])
 
 
-KINDS = {"step": run_step, "eval": run_eval, "train_net": run_train_net,
+KINDS = {"step": run_step, "tp_step": run_tp_step, "eval": run_eval,
+         "train_net": run_train_net,
          "global_batch": run_global_batch, "evaluator": run_evaluator,
          "rss_decision": run_rss_decision}
 
