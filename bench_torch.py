@@ -75,7 +75,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -105,14 +104,6 @@ def _peak_tflops(device):
     if device.type == "cuda" and "H100" in torch.cuda.get_device_name(device):
         return PEAK_H100_BF16_TFLOPS
     return None
-
-
-def _device_name(device) -> str:
-    if device.type != "cuda":
-        return "cpu"
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return smi.stdout.strip().splitlines()[device.index or 0]
 
 
 def _load_baseline(name: str):
@@ -175,7 +166,7 @@ def count_flops(ev, up, seed: int) -> float:
 def bench_infer() -> dict:
     import torch
 
-    from pmpu_tpu_torch.device import resolve_device
+    from pmpu_tpu_torch.device import card_label, resolve_device
     from pmpu_tpu_torch.inference.engine import VolumeEvaluator
     from pmpu_tpu_torch.train.tasks import make_task
 
@@ -274,7 +265,7 @@ def bench_infer() -> dict:
         "achieved_tflops": achieved,
         "peak_tflops": peak,
         "mfu": achieved / peak if peak else None,
-        "device": _device_name(device),
+        "device": card_label(device),
         "bf16": BF16,
         "eval_batch": EVAL_BATCH,
         "quantize": QUANTIZE,
@@ -289,7 +280,7 @@ def bench_train() -> dict:
     from pmpu_tpu_torch.data.index_map import build_index_map
     from pmpu_tpu_torch.data.sampler import sample_batch_vt
     from pmpu_tpu_torch.data.volumes import make_view_stacks
-    from pmpu_tpu_torch.device import resolve_device
+    from pmpu_tpu_torch.device import card_label, resolve_device
     from pmpu_tpu_torch.train.steps import create_train_state, make_train_step
     from pmpu_tpu_torch.train.tasks import make_task
 
@@ -354,7 +345,7 @@ def bench_train() -> dict:
         "train_steps": n_steps,
         "train_loss": loss,
         "train_max_memory_bytes": torch.cuda.max_memory_allocated(device) if cuda else None,
-        "device": _device_name(device),
+        "device": card_label(device),
         "bf16": BF16,
     }
 

@@ -287,6 +287,35 @@ Phases, each printing at least one line; any failure exits non-zero:
              kernel's ``tp_launches_per_step`` by leg and
              ``tp_eval_launches_per_volume`` by path, per rank.
 
+16. the remaining tools — ``pmpu_tpu_torch/tools/`` at full width, each
+             through its ``main`` (the kernels' counts set to 0 just before
+             and read just after each in-process tool): (a)
+             ``measure_baseline --full`` at 128³ (the reference's algorithm:
+             384 batch-1 slices, 5 forwards of the 3 towers each, the
+             probabilities to the host, PyTorch's default TF32), then
+             ``--slices 6`` (the extrapolation beside it) and ``--mode
+             train``; the reference's s/volume over phase 5's wall s/volume
+             of the port; (b) ``profile_volume``, then ``trace_breakdown`` on
+             its volume trace (its device op groups within 1 % of
+             profile_volume's GROUPS total); (c) ``bench_int8_resident`` (2
+             rounds of 5 volumes; both sides launch the conv-chain kernel in
+             both forms; agreement and ms of each side); (d) ``bench_stream``
+             (batch 32, 2 rounds of 10 steps; the wires' losses bit-equal in
+             its check); then (e) ``demo_mmap_ramcap`` at 4 x 128³ on the
+             card (the uncapped children's VmData, the in-RAM run's peak at
+             least 0.8 of the pool above the mmap run's, the cap, the mmap
+             run lives and the in-RAM run dies; the card's machine holds
+             only ``brk`` to RLIMIT_DATA, so there the tool kills a child
+             past the cap itself), (g) ``repro_client_staging_leak 30 128
+             float32`` (creep below 1 MB/iter) and (h)
+             ``run_6view_probunet.sh`` at full width with ``CUBE=64
+             EPOCHS=1`` (its Dice lines; the eval CLI in this process on its
+             checkpoint repeats its report within 1e-6 and launches the
+             oblique planes, fcomb and the gather) as processes of their own,
+             while (f) ``debug_probunet_drift`` runs 40 steps here (max
+             relative drift within 1e-4, one gather launch a step). The
+             kernels line gives each kernel's ``tools_launches`` by tool.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--json PATH`` also writes
 all measurements to PATH.
@@ -300,6 +329,7 @@ import contextlib
 import json
 import logging
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -4353,6 +4383,272 @@ def phase_tensor_parallel(card, state_dict, dev="cuda", width=None):
     return out
 
 
+# phase 16: the remaining tools; demo_mmap_ramcap's dataset on the card: 4
+# volumes of 128³, a pool of 64 MiB (the mmap children's VmData repeated
+# within 1.3 MiB over three runs at 8 and 16 volumes on an H100 80GB HBM3
+# at 700 W)
+RAMCAP_DATA = (4, 128)
+DRIFT_BOUND = 1e-4  # tests/test_torch_tools_rest.py's bound over 10 CPU steps
+LEAK_GATE_MB = 1.0  # creep an iteration after warm-up (the TPU client: 8.00)
+
+
+def quiet(fn, argv):
+    """``fn(argv)`` with its standard output captured → (result, output)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn(argv)
+    return res, buf.getvalue()
+
+
+def phase_tools_rest(card, port_wall_s, dev="cuda", width=None, cube=128):
+    """Phase 16: the remaining tools (see the module docstring). ``port_wall_s``:
+    phase 5's wall s/volume of the port, beside which (a)'s control
+    stands."""
+    from pmpu_tpu_torch import eval as eval_cli
+    from pmpu_tpu_torch.tools import (
+        bench_int8_resident,
+        bench_stream,
+        debug_probunet_drift,
+        measure_baseline,
+        profile_volume,
+        trace_breakdown,
+    )
+
+    width = FULL_WIDTH if width is None else tuple(width)
+    cuda = dev == "cuda"
+    filters = ",".join(map(str, width))
+    print("phase 16: the remaining tools")
+    t_phase = time.perf_counter()
+    out, launches, secs = {}, {}, {}
+    tmp = tempfile.TemporaryDirectory()
+    d = tmp.name
+    procs = {}
+    stamp = [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        secs[name] = now - stamp[0]
+        stamp[0] = now
+
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+
+    def counted(name, fn, argv):
+        """A tool in this process, its standard output captured, the
+        kernels' counts set to 0 just before and read just after."""
+        reset_kernel_counts()
+        res, text = quiet(fn, argv)
+        if cuda:
+            torch.cuda.synchronize()
+        launches[name] = kernel_counts()
+        return res, text
+
+    def launch(name, cmd, extra_env=None):
+        log = open(os.path.join(d, f"{name}.log"), "w")
+        procs[name] = (subprocess.Popen(cmd, cwd=ROOT, env={**env, **(extra_env or {})},
+                                        stdout=log, stderr=subprocess.STDOUT, text=True,
+                                        start_new_session=True), log)
+
+    def finish(name, timeout=900):
+        proc, log = procs[name]
+        try:
+            proc.wait(timeout=timeout)
+        finally:
+            log.close()
+        with open(log.name) as f:
+            text = f.read()
+        require(proc.returncode == 0, f"phase 16 {name}: exited {proc.returncode}:\n"
+                                      f"{text[-4000:]}")
+        return text
+
+    try:
+        # (a) the reference's algorithm, alone on the card
+        base = ["--cube", str(cube), "--num-filters", filters, "--device", dev]
+        full, _ = quiet(measure_baseline.main, base + ["--full", "--out", os.path.join(d, "f.json")])
+        ext, _ = quiet(measure_baseline.main, base + ["--slices", "6", "--out",
+                                                       os.path.join(d, "e.json")])
+        trn, _ = quiet(measure_baseline.main, base + ["--mode", "train", "--out",
+                                                       os.path.join(d, "t.json")])
+        ref_s, ext_s = full["sec_per_volume_extrapolated"], ext["sec_per_volume_extrapolated"]
+        require(full["timed_slices"] == 3 * cube and np.isfinite(ref_s), f"(a): {full}")
+        print(f"  [{card}] (a) measure_baseline, the reference's algorithm (batch-1 slices, "
+              f"5 forwards of the 3 towers a slice, probabilities to the host), probunet "
+              f"{filters}, {cube}³: --full {ref_s:.3f} s/volume ({full['timed_slices']} slices, "
+              f"{1e3 * full['sec_per_slice_median']:.2f} ms a slice); --slices 6 extrapolated "
+              f"{ext_s:.3f} s/volume ({ext_s / ref_s:.3f} of --full); the train step at batch 2 "
+              f"{1e3 * trn['sec_per_step_median']:.2f} ms ({trn['slices_per_sec']:.1f} slices/s); "
+              f"the port's wall (phase 5) {port_wall_s:.4f} s/volume: the reference takes "
+              f"{ref_s / port_wall_s:.1f} times it; TF32 cuDNN {full['cudnn_allow_tf32']}, "
+              f"matmul {full['matmul_allow_tf32']}")
+        out["a"] = {"full": full, "extrapolated": ext, "train": trn, "port_wall_s": port_wall_s,
+                    "ratio_to_port": ref_s / port_wall_s, "extrapolated_over_full": ext_s / ref_s}
+        mark("a")
+
+        # (b) profile_volume, then trace_breakdown over its volume trace
+        trace_dir = os.path.join(d, "profile")
+        _, text = counted("b", profile_volume.main, ["--cube", str(cube), "--filters", filters,
+                                                     "--trace-dir", trace_dir, "--device", dev])
+        groups = json.loads(next(line for line in text.splitlines()
+                                 if line.startswith("GROUPS "))[len("GROUPS "):])
+        pv_total = sum(groups["volume"]["groups_ms"].values())
+        rc, report = quiet(trace_breakdown.main, [os.path.join(trace_dir, "volume")])
+        if cuda:
+            require(rc == 0, f"(b) trace_breakdown: rc {rc}")
+            br = json.loads(next(line for line in report.splitlines()
+                                 if line.startswith("BREAKDOWN "))[len("BREAKDOWN "):])
+            tb_total = sum(br["groups"].values())
+            require(abs(tb_total - pv_total) <= 0.01 * pv_total,
+                    f"(b): trace_breakdown's groups {tb_total} ms, profile_volume's {pv_total}")
+            spans = sorted(br["spans"].items(), key=lambda kv: -kv[1][0])[:6]
+            w = br["window"]
+            print(f"  [{card}] (b) profile_volume then trace_breakdown on its 3-view bf16 volume: "
+                  f"device op groups {tb_total:.3f} ms against profile_volume's {pv_total:.3f} ms; "
+                  f"busy {w['busy_ms']:.2f} of {w['window_ms']:.2f} ms (idle "
+                  f"{w['idle_share']:.3f}); spans (device ms) "
+                  f"{ {k: round(v[0], 2) for k, v in spans} }; groups "
+                  f"{ {k: round(v, 2) for k, v in br['groups'].items()} }")
+            out["b"] = {"breakdown_groups_ms": br["groups"], "profile_volume_total_ms": pv_total,
+                        "spans_ms": {k: v[0] for k, v in br["spans"].items()}, "window": w}
+        else:  # a CPU trace has no device operations, which the tool refuses
+            require(rc == 1, f"(b) trace_breakdown on a CPU trace: rc {rc}")
+            print(f"  [{card}] (b) trace_breakdown refuses the CPU trace (rc 1)")
+        mark("b")
+
+        # (c) bench_int8_resident: both sides on the conv-chain kernel
+        res, _ = counted("c", bench_int8_resident.main,
+                         ["--cube", str(cube), "--filters", filters, "--rounds", "2", "--n", "5",
+                          "--device", dev])
+        res.pop("fused")
+        q = res["qchain_launches_per_volume"]
+        if cuda:
+            require(all(q[side]["stripes"] > 0 and q[side]["whole_image"] > 0 for side in q),
+                    f"(c): conv-chain launches by form {q}")
+        print(f"  [{card}] (c) bench_int8_resident: resident {res['best_ms']['resident']:.2f} ms, "
+              f"non-resident {res['best_ms']['fused']:.2f} ms a volume (best of 2 rounds of 5; "
+              f"{res['speedup']:.3f}x); agreement max |dprob| {res['max_abs_dprob']:.3e}, argmax "
+              f"{100 * res['argmax_agreement']:.4f} %; conv-chain launches a volume {q}")
+        out["c"] = res
+        mark("c")
+
+        # (d) bench_stream: the wires bit-equal in the check, then timed
+        res, _ = quiet(bench_stream.main, ["--cube", str(cube), "--batch", "32" if cuda else "4",
+                                           "--steps", "10", "--rounds", "2", "--device", dev])
+        print(f"  [{card}] (d) bench_stream, full-width U-Net bf16, batch {res['batch']}: losses "
+              f"bit-equal on both wires over {len(res['check_losses']['wide'])} steps; ms a step "
+              f"wide {res['ms_per_step']['wide']}, compact {res['ms_per_step']['compact']} "
+              f"({res['speedup']:.3f}x)")
+        out["d"] = res
+        mark("d")
+
+        # (e), (g), (h) as processes of their own; (f) here meanwhile
+        vols, rcube = RAMCAP_DATA
+        launch("e", [sys.executable, "-m", "pmpu_tpu_torch.tools.demo_mmap_ramcap", "--volumes",
+                     str(vols), "--cube", str(rcube), "--device", dev, "--workdir",
+                     os.path.join(d, "ramcap")], {"OMP_NUM_THREADS": "1"})
+        launch("g", [sys.executable, "-m", "pmpu_tpu_torch.tools.repro_client_staging_leak",
+                     "30", str(cube), "float32", "--device", dev])
+        p6v = os.path.join(d, "p6v")
+        script_env = {"PYTHON": sys.executable, "DATA": p6v, "DEVICE": dev, "EPOCHS": "1",
+                      **({"CUBE": "64", "FILTERS": filters} if cuda else
+                         {"CUBE": "16", "FILTERS": filters, "BATCH": "4"})}
+        launch("h", ["bash", os.path.join(ROOT, "pmpu_tpu_torch", "tools",
+                                          "run_6view_probunet.sh")], script_env)
+
+        res, _ = counted("f", debug_probunet_drift.main, ["--device", dev])
+        require(res["max_rel_drift"] <= DRIFT_BOUND,
+                f"(f) debug_probunet_drift: max rel drift {res['max_rel_drift']} over "
+                f"{res['steps']} steps")
+        if cuda:
+            require(launches["f"]["gather_normalize_planes"] == res["steps"],
+                    f"(f): gather launches {launches['f']} in {res['steps']} steps")
+        print(f"  [{card}] (f) debug_probunet_drift, {res['steps']} steps of probunet 8,16 beside "
+              f"the mirror: max rel drift {res['max_rel_drift']:.3e} (bound {DRIFT_BOUND:g}); "
+              f"last losses {res['port'][-1]:.4f} / {res['mirror'][-1]:.4f}")
+        out["f"] = {k: res[k] for k in ("steps", "max_rel_drift", "rel_drift")}
+        mark("f")
+
+        text = finish("e")
+        verdict = json.loads(text.strip().splitlines()[-1])
+        require(verdict["discriminating"] and verdict["pool_on_heap"],
+                f"(e) demo_mmap_ramcap: {verdict}\n{text[-3000:]}")
+        print(f"  [{card}] (e) demo_mmap_ramcap, {vols} x {rcube}³ (pool "
+              f"{verdict['pool_gib']:.3f} GiB): the uncapped children's peak VmData "
+              f"{verdict['baseline_vm_data_gib']:.3f} GiB (--mmap-store) and "
+              f"{verdict['inram_uncapped_vm_data_gib']:.3f} GiB (in RAM: "
+              f"{verdict['inram_over_mmap_per_pool']:.3f} of the pool above), cap "
+              f"{verdict['cap_gib']:.3f} GiB (RLIMIT_DATA refuses "
+              f"{verdict['rlimit_data_enforced']} here; the tool polices the cap "
+              f"{verdict['cap_enforced_by_tool']}); --mmap-store lived (rc 0, peak "
+              f"{verdict['mmap_peak_vm_data_gib']:.3f} GiB, {verdict['mmap_stream_seconds']:.1f} s), "
+              f"in RAM died (rc {verdict['inram_rc']}, peak "
+              f"{verdict['inram_peak_vm_data_gib']:.3f} GiB, allocation failure "
+              f"{verdict['inram_allocation_failure']}, killed past the cap by the tool "
+              f"{verdict['inram_killed_over_cap']})")
+        out["e"] = verdict
+        mark("e (beside f)")
+
+        text = finish("g")
+        leak = json.loads(next(line for line in text.splitlines()
+                               if line.startswith("RESULT "))[len("RESULT "):])
+        require(leak["creep_per_iter_mb"] < LEAK_GATE_MB,
+                f"(g) repro_client_staging_leak: {leak['creep_per_iter_mb']} MB/iter")
+        print(f"  [{card}] (g) repro_client_staging_leak 30 {cube} float32: creep "
+              f"{leak['creep_per_iter_mb']:.3f} MB/iter after warm-up (gate {LEAK_GATE_MB:g}; "
+              f"the TPU client leaked 8.00), RSS {leak['rss_mb'][0]:.1f} -> "
+              f"{leak['rss_mb'][-1]:.1f} MB; empty_cache {leak['empty_cache']}")
+        out["g"] = {k: leak[k] for k in ("creep_per_iter_mb", "rss_mb", "empty_cache")}
+        mark("g (beside e)")
+
+        text = finish("h", timeout=1200)
+        dice = parse_report(text)
+        require(len(dice) == 7 and "DONE train rc=0 eval rc=0" in text,
+                f"(h) run_6view_probunet.sh:\n{text[-3000:]}")
+        # the script's model through the eval CLI in this process: the same
+        # report, each kernel of the 6-view path launched
+        cwd = os.path.join(d, "h_eval")
+        os.makedirs(cwd)
+        argv = ["-m", "probunet", "-f", os.path.join(p6v, "ckpt", "probunet_model.pt"), "-d",
+                os.path.join(p6v, "test"), "--num-views", "6", "--bf16", "--ged", "16",
+                "--eval-samples", "5", "--device", dev]
+        with contextlib.chdir(cwd):
+            _, report = counted("h", eval_cli.main, argv)
+        diff = report_diff(parse_report(report), dice)
+        require(diff <= 1e-6, f"(h): the in-process eval report differs by {diff}")
+        if cuda:
+            require(all(launches["h"][k] > 0 for k in ("oblique_planes", "fcomb_mean_decode",
+                                                       "gather_normalize_planes")),
+                    f"(h): launches {launches['h']}")
+        for line in text.splitlines():
+            if re.match(REPORT_LINE, line.strip()) or line.startswith(("GED", "DONE")):
+                print(f"  [{card}] (h) {line.strip()}")
+        print(f"  [{card}] (h) run_6view_probunet.sh, probunet {filters}, "
+              f"CUBE={script_env['CUBE']} EPOCHS=1: the eval CLI in this process repeats its "
+              f"report (max |diff| {diff:.2g}); its launches {launches['h']}")
+        out["h"] = {"report": {k: [a.tolist() for a in v] for k, v in dice.items()},
+                    "inprocess_diff": diff}
+        if cuda:
+            for name in ("b", "c"):
+                require(launches[name]["fcomb_mean_decode"] > 0
+                        and launches[name]["gather_normalize_planes"] > 0,
+                        f"({name}): launches {launches[name]}")
+        mark("h (beside e, g)")
+        out["launches"], out["seconds"] = launches, secs
+        out["s"] = time.perf_counter() - t_phase
+        print(f"  [{card}] phase 16 in {out['s']:.1f} s "
+              f"({ {k: round(v, 1) for k, v in secs.items()} }); kernel launches by tool "
+              f"{launches}")
+    finally:
+        for proc, log in procs.values():
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)  # the whole session
+            proc.wait()
+            log.close()
+        tmp.cleanup()
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write all measurements to this file")
@@ -4427,6 +4723,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     summary["tensor_parallel"] = phase_tensor_parallel(card, serve_sd)
     clock.append(("tensor_parallel", time.perf_counter()))
+    torch.cuda.empty_cache()
+    summary["tools_rest"] = phase_tools_rest(card, min(summary["wall_s_per_volume"]))
+    clock.append(("tools_rest", time.perf_counter()))
     summary["phase_s"] = {name: b - a for (_, a), (name, b) in zip(clock, clock[1:])}
     summary["phase_s"]["build"] = build_s
     print(f"seconds by phase: { {k: round(v, 1) for k, v in summary['phase_s'].items()} }; "
@@ -4465,6 +4764,10 @@ def main() -> int:
                                      for leg, e in tp["legs"].items()}
         k["tp_eval_launches_per_volume"] = {
             path: c[count] for path, c in tp["eval"]["launches_per_volume"].items()}
+        # phase 16, by tool: (b) profile_volume, (c) bench_int8_resident, (f)
+        # debug_probunet_drift, (h) the 6-view script's model through the eval CLI
+        k["tools_launches"] = {tool: c[count]
+                               for tool, c in summary["tools_rest"]["launches"].items()}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:

@@ -47,3 +47,19 @@ def exact_f32():
 def exact_f32_if(dtype):
     """:func:`exact_f32` for f32 operands, else a context that does nothing."""
     return exact_f32() if dtype == torch.float32 else contextlib.nullcontext()
+
+
+def card_label(device) -> str:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them (e.g.
+    ``NVIDIA H100 80GB HBM3, 700.00 W``), the line that stands beside every
+    number a tool records; ``"cpu"`` for the CPU."""
+    import subprocess
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "cpu"
+    out = subprocess.run(["nvidia-smi", "-i", str(dev.index or 0),
+                          "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]

@@ -90,7 +90,7 @@ def _normalized(sl: np.ndarray) -> np.ndarray:
 
 
 def reference_eval_volume(tnet, vol: np.ndarray, n_classes: int = 3, probunet=False,
-                          n_samples: int = 5, seed: int | None = None, device="cpu"):
+                          n_samples: int = 5, seed: int | None = None, device=None):
     """The reference's eval loop (``eval.py:131-193``) in torch: per-slice
     bs=1 prediction over 3 views (probunet: ``n_samples`` prior decodes per
     slice with the logits averaged, the *intent* of ``eval.py:148-157``,
@@ -100,7 +100,9 @@ def reference_eval_volume(tnet, vol: np.ndarray, n_classes: int = 3, probunet=Fa
 
     ``seed=None`` with probunet decodes the prior MEAN (the deterministic
     parity mode); an int seeds torch's generators for the distributional
-    check."""
+    check. ``device`` None is the card (``resolve_device``), as for every
+    entry point of the port."""
+    device = resolve_device(device)
     tnet.eval()
     if seed is not None:
         torch.manual_seed(seed)
@@ -128,7 +130,7 @@ def reference_eval_volume(tnet, vol: np.ndarray, n_classes: int = 3, probunet=Fa
     return fused.cpu().numpy()
 
 
-def reference_ged_samples(tnet, vol: np.ndarray, n_samples: int, seed: int, device="cpu"):
+def reference_ged_samples(tnet, vol: np.ndarray, n_samples: int, seed: int, device=None):
     """N fused multi-view segmentation SAMPLES from the mirror, the
     per-sample analogue of :func:`reference_eval_volume`: each slice's U-Net
     features and prior run once, ``n_samples`` independent prior draws are
@@ -136,7 +138,8 @@ def reference_ged_samples(tnet, vol: np.ndarray, n_samples: int, seed: int, devi
     ``probabilistic_unet.py:225-240``, "for the GED it is important to take
     a sample"), softmaxed per sample, reassembled with the reference's
     permutes, mean-fused across views per sample, argmaxed. Returns
-    (n_samples, S, S, S) int64 on the host."""
+    (n_samples, S, S, S) int64 on the host. ``device`` None is the card."""
+    device = resolve_device(device)
     tnet.eval()
     torch.manual_seed(seed)
     s = vol.shape[0]
@@ -218,7 +221,7 @@ def synth_volumes_hard(n: int, s: int, seed: int, contrast: float = 0.35, noise:
 def reference_train(tnet, imgs: np.ndarray, lbls: np.ndarray, *, probunet: bool, epochs: int = 5,
                     batch_size: int = 2, lr: float = 1e-3, lrf: float = 0.1, lrp: int = 5,
                     momentum: float = 0.9, val_percent: float = 0.1, beta: float = 10.0,
-                    seed: int = 0, log=print, device="cpu"):
+                    seed: int = 0, log=print, device=None):
     """The reference training loop (``train.py:27-196``) on the mirror: the
     multi-planar slice dataset with the empty-slice filter and per-slice max
     normalization (``mri_dataset.py:37-51,109-110``), a random slice split
@@ -227,7 +230,9 @@ def reference_train(tnet, imgs: np.ndarray, lbls: np.ndarray, *, probunet: bool,
     ``acc_steps = 4 iff batch > 4`` over ``batch // acc_steps`` minibatches
     with drop_last, ``clip_grad_value_(0.1)``, the scheduler stepped on the
     mean validation loss. Probunet loss = Σ CE of a posterior-sample
-    reconstruction + β·mean KL(q‖p); U-Net loss = mean CE."""
+    reconstruction + β·mean KL(q‖p); U-Net loss = mean CE. ``device`` None
+    is the card."""
+    device = resolve_device(device)
     torch.manual_seed(seed)
     tnet.to(device)
     index = np.asarray(build_index_map(lbls, filter=True))

@@ -39,7 +39,6 @@ import argparse
 import bisect
 import json
 import os
-import subprocess
 import time
 
 import numpy as np
@@ -175,7 +174,7 @@ def run(argv=None) -> dict:
     from pmpu_tpu_torch.data.index_map import build_index_map
     from pmpu_tpu_torch.data.sampler import sample_batch_vt
     from pmpu_tpu_torch.data.volumes import make_view_stacks
-    from pmpu_tpu_torch.device import resolve_device
+    from pmpu_tpu_torch.device import card_label, resolve_device
     from pmpu_tpu_torch.train.steps import create_train_state, make_train_step
     from pmpu_tpu_torch.train.tasks import make_task
     from pmpu_tpu_torch.utils.profiling import trace
@@ -187,11 +186,7 @@ def run(argv=None) -> dict:
         if cuda:
             torch.cuda.synchronize(device)
 
-    card = "cpu"
-    if cuda:
-        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                               "--format=csv,noheader"], capture_output=True, text=True,
-                              check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_label(device)
     s = args.cube
     rng = np.random.default_rng(0)
     imgs = rng.random((2, s, s, s)).astype(np.float32)

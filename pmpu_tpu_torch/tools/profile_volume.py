@@ -29,7 +29,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import time
 
 import numpy as np
@@ -111,7 +110,7 @@ def main(argv=None) -> int:
     import torch
     from torch.profiler import record_function
 
-    from pmpu_tpu_torch.device import resolve_device
+    from pmpu_tpu_torch.device import card_label, resolve_device
     from pmpu_tpu_torch.inference.engine import VolumeEvaluator
     from pmpu_tpu_torch.train.tasks import make_task
     from pmpu_tpu_torch.utils.profiling import trace
@@ -123,11 +122,7 @@ def main(argv=None) -> int:
         if cuda:
             torch.cuda.synchronize(device)
 
-    card = "cpu"
-    if cuda:
-        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                               "--format=csv,noheader"], capture_output=True, text=True,
-                              check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_label(device)
     nf = tuple(int(x) for x in args.filters.split(","))
     task = make_task("probunet", num_filters=nf, latent_dim=6, n_classes=3, no_convs_fcomb=4,
                      dtype=torch.bfloat16, device=device, seed=0)

@@ -119,10 +119,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("qconv_sweep: no CUDA device", file=sys.stderr)
         return 2
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True,
-                          timeout=60).stdout.strip().splitlines()[0]
-    print(card)
+    from pmpu_tpu_torch.device import card_label
     from pmpu_tpu_torch.ops.cuda import _build
     from pmpu_tpu_torch.ops.cuda.qconv import (
         chain_reference,
@@ -131,6 +128,9 @@ def main() -> int:
         launch_build,
         launch_plan,
     )
+
+    card = card_label("cuda")
+    print(card)
 
     variants = []
     for spec in args.variant:
