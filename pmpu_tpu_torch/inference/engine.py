@@ -29,6 +29,16 @@ volume i+1 before they fetch volume i, so the host work of one volume (the
 upload's quantization, the fetches, the exports) runs while the card
 computes another.
 
+The host side carries ``torch.profiler`` spans (``record_function``, a few
+microseconds each when no profiler runs) on the trace's clock, so that a
+trace names what the host did while the card idled: ``dispatch`` (all of a dispatch) holds
+``upload`` (``encode``: the host's conversion to the wire dtype; ``stage``:
+the pinned copy and the asynchronous host-to-device copy), the model's
+spans and ``outputs`` (the argmax, Dice and the starts of the copies to the
+host); a fetch is ``fetch_wait`` (the wait on the copies' event) then
+``unpack`` (the conversion to host f32); ``pool_alloc`` marks each new
+buffer of the host pool.
+
 ``evaluate_volumes_batched`` runs V volumes together: chunk i of every
 volume goes through the model in one call (V·b slices), so it holds V× the
 activations of one volume for the same number of launches.
@@ -191,7 +201,8 @@ class HostPool:
                 del free[j]
                 return buf
         self.allocated[key] = self.allocated.get(key, 0) + 1
-        with torch.inference_mode(False):  # a normal tensor: writable in and out of the mode
+        # a normal tensor: writable in and out of the mode
+        with record_function("pool_alloc"), torch.inference_mode(False):
             return torch.empty(key[0], dtype=dtype, pin_memory=self.pinned)
 
     def give(self, buf: torch.Tensor, ready=None) -> None:
@@ -304,30 +315,35 @@ class VolumeEvaluator:
         return out
 
     def _upload(self, vol) -> torch.Tensor:
-        """Host → device image upload in the wire dtype. A tensor already on
-        the device passes through. uint8 quantizes against the per-volume
-        max (last three axes)."""
+        """Host → device image upload in the wire dtype: ``_encode`` (span
+        ``encode``), then ``_to_device`` (span ``stage``). A tensor already
+        on the device passes through."""
         if isinstance(vol, torch.Tensor):
             if vol.device.type == self.device.type:
                 return vol
             vol = vol.numpy()
-        arr = np.asarray(vol)
+        with record_function("encode"):
+            wire = self._encode(np.asarray(vol))
+        with record_function("stage"):
+            return self._to_device(wire)
+
+    def _encode(self, arr: np.ndarray):
+        """``arr`` in the wire dtype, on the host. uint8 quantizes against
+        the per-volume max (last three axes)."""
         if self.input_dtype == "uint8":
             if arr.dtype == np.uint8:
-                return self._to_device(arr)
+                return arr
             a = arr.astype(np.float32, copy=False)
             # signs cannot ride the scale-cancelling wire, and NaN/inf would
             # zero the scaled volume: the whole upload ships bf16 instead
             if a.min() < 0 or not np.isfinite(a).all():
                 logging.warning("uint8 wire: signed or non-finite voxels; shipping bf16")
-                return self._to_device(torch.from_numpy(a).to(torch.bfloat16))
+                return torch.from_numpy(a).to(torch.bfloat16)
             m = a.max(axis=tuple(range(a.ndim - 3, a.ndim)), keepdims=True)
             q = a * np.divide(255.0, m, out=np.zeros_like(m), where=m > 0)
-            return self._to_device(np.rint(q).astype(np.uint8))
+            return np.rint(q).astype(np.uint8)
         t = _from_numpy(arr)
-        if self.input_dtype == "bfloat16":
-            return self._to_device(t.to(torch.bfloat16))
-        return self._to_device(t.to(torch.float32))
+        return t.to(torch.bfloat16 if self.input_dtype == "bfloat16" else torch.float32)
 
     def _upload_truth(self, truth) -> torch.Tensor:
         """Truth labels ship as uint8 when the class ids fit."""
@@ -589,9 +605,11 @@ class VolumeEvaluator:
         ``h[name]``, once the copies are done; its buffer goes back to the
         pool, so each output is fetched once."""
         buf = h.pop(name)
-        if h["copied"] is not None:
-            h["copied"].synchronize()
-        out = convert(buf.numpy())
+        with record_function("fetch_wait"):
+            if h["copied"] is not None:
+                h["copied"].synchronize()
+        with record_function("unpack"):
+            out = convert(buf.numpy())
         self._pool.give(buf)
         return out
 
@@ -638,16 +656,18 @@ class VolumeEvaluator:
         wait for the card (only the first int8 volume does, to calibrate).
         Returns a handle: 'fused' and 'views' (device tensors) and the host
         outputs that ``_fetch_seg``, ``_fetch_entropy`` and ``_fetch`` read."""
-        if self.quantize:
-            self._maybe_quantize(sample_vol=img_vol)
-        with record_function("upload"):
-            vol = self._upload(img_vol)
-        outs = self._predict_volume(vol, seed)
-        dice = None
-        if truth_vol is not None:
-            dice = self._dice_report(outs, self._upload_truth(truth_vol))
-        dev = self._device_outputs(outs[-1], dice, want_entropy)
-        return {"fused": outs[-1], "views": outs[:-1], **self._copy_to_host(dev)}
+        with record_function("dispatch"):
+            if self.quantize:
+                self._maybe_quantize(sample_vol=img_vol)
+            with record_function("upload"):
+                vol = self._upload(img_vol)
+            outs = self._predict_volume(vol, seed)
+            with record_function("outputs"):
+                dice = None
+                if truth_vol is not None:
+                    dice = self._dice_report(outs, self._upload_truth(truth_vol))
+                host = self._copy_to_host(self._device_outputs(outs[-1], dice, want_entropy))
+        return {"fused": outs[-1], "views": outs[:-1], **host}
 
     @torch.inference_mode()
     def evaluate_volume(self, img_vol, truth_vol=None, seed: int = 0,
@@ -780,17 +800,20 @@ class VolumeEvaluator:
         with the seed ``seeds[j]``. Returns 'fused' (V,S,S,S,C) on the
         device and the host copies of the argmax, the Dice tables
         (V, num_views+1, C-1) and the entropy, as ``_dispatch_volume``."""
-        if self.quantize:
-            self._maybe_quantize(sample_vol=img_vols[0])
-        vols = self._upload(img_vols)
-        outs = self._predict_group(vols, seeds)
-        fused = torch.stack([o[-1] for o in outs])
-        dice = None
-        if truth_vols is not None:
-            truths = self._upload_truth(truth_vols)
-            dice = torch.stack([self._dice_report(o, t) for o, t in zip(outs, truths)])
-        return {"fused": fused, **self._copy_to_host(self._device_outputs(fused, dice,
-                                                                          want_entropy))}
+        with record_function("dispatch"):
+            if self.quantize:
+                self._maybe_quantize(sample_vol=img_vols[0])
+            with record_function("upload"):
+                vols = self._upload(img_vols)
+            outs = self._predict_group(vols, seeds)
+            with record_function("outputs"):
+                fused = torch.stack([o[-1] for o in outs])
+                dice = None
+                if truth_vols is not None:
+                    truths = self._upload_truth(truth_vols)
+                    dice = torch.stack([self._dice_report(o, t) for o, t in zip(outs, truths)])
+                host = self._copy_to_host(self._device_outputs(fused, dice, want_entropy))
+        return {"fused": fused, **host}
 
     @torch.inference_mode()
     def evaluate_volumes_batched(self, img_vols, truth_vols=None, seed: int = 0) -> dict:
