@@ -7,7 +7,7 @@ Phases, each printing at least one line; any failure exits non-zero:
 
 1. device  — refuse to run without CUDA; print the card's name and power
              limit (nvidia-smi).
-2. build   — compile the four CUDA sources with nvcc for sm_90a (in
+2. build   — compile the five CUDA sources with nvcc for sm_90a (in
              parallel).
 3. kernels — each kernel against its plain PyTorch version on the card:
              fcomb mean-decode at (N=16, 128², Cf=f0=64, latent 6, C=3,
@@ -315,6 +315,20 @@ Phases, each printing at least one line; any failure exits non-zero:
              while (f) ``debug_probunet_drift`` runs 40 steps here (max
              relative drift within 1e-4, one gather launch a step). The
              kernels line gives each kernel's ``tools_launches`` by tool.
+17. epilogue — the bias + BatchNorm + ReLU epilogue kernel
+             (``ops/cuda/bias_bn_relu``) against the three ATen passes it
+             replaces (its plain version), bit for bit, at every 3×3 conv
+             output shape of a 3-view chunk (51 slices) and a 6-view chunk
+             (68) of 170² slices: C 64..1024 at 170, 85, 42/43, 21/22, 10/11,
+             with NaN, ±inf, ±0, subnormals, a zero variance and a zero and a
+             negative scale among the values; each timed (over buffers of
+             200 MB or more, so from device memory) beside its bound (2 × 2
+             bytes an element at 3.35 TB/s), its plain version and each of
+             the three passes; then two 170³ volumes of the full-width bf16
+             probunet (BatchNorm statistics seeded) through
+             ``predict_volumes_pipelined`` at 3 and 6 views, with the route
+             open and closed (``unet._fused`` patched): labels bit-equal, 28
+             epilogue launches a chunk.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--json PATH`` also writes
@@ -566,6 +580,161 @@ def phase_oblique_kernel():
                     f"oblique S={s}: the tilted outer plane does not leave the cube")
     print(f"  oblique planes: S = 16, 17 and 33 x {list(bases)}; S = 128 x tilted (V = 1) "
           f"and 6 views: bit-exact")
+
+
+def epilogue_shapes(cube, filters) -> dict:
+    """{(C, H): how many} of the 3×3 conv outputs of one cube² slice that
+    the epilogue takes: the backbone at floor sizes (2×2 max pools), encoder
+    and decoder, and the prior tower at ceil sizes (2×2 ceil average
+    pools); 28 at five levels."""
+    floor, ceil = [cube], [cube]
+    for _ in filters[1:]:
+        floor.append(floor[-1] // 2)
+        ceil.append(-(-ceil[-1] // 2))
+    shapes = {}
+    for c, h in [*zip(filters, floor), *zip(filters[:-1], floor[:-1]), *zip(filters, ceil)]:
+        shapes[(c, h)] = shapes.get((c, h), 0) + 2
+    return shapes
+
+
+def epilogue_case(n, c, h, seed):
+    """A conv output (n,c,h,h) bf16 channels_last with NaN, ±inf, ±0 and
+    subnormals among its values, and its conv bias and BatchNorm tensors
+    (among them a zero variance, a zero and a negative scale)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    y = (2 * torch.randn((n, h, h, c), generator=g, device="cuda")).to(torch.bfloat16)
+    special = torch.tensor([float("nan"), float("inf"), -float("inf"), 0.0, -0.0, 1e-39, -1e-39,
+                            -1e-41], device="cuda").to(torch.bfloat16)
+    y.view(-1)[: special.numel()] = special
+    y = y.permute(0, 3, 1, 2)
+
+    def vec(scale, offset=0.0):
+        return offset + scale * torch.randn(c, generator=g, device="cuda")
+
+    var = vec(0.1, 1.0).abs()
+    var[0] = 0.0
+    weight = vec(0.1, 1.0)
+    weight[1], weight[2] = 0.0, -0.5
+    return y, (vec(0.05), vec(0.1), var, weight, vec(0.1), 1e-5)
+
+
+def seed_batchnorm(net, seed):
+    """Every BatchNorm of ``net`` away from (1, 0, 0, 1), seeded."""
+    from pmpu_tpu_torch.models.unet import BatchNorm2d
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, BatchNorm2d):
+                c = m.weight.shape[0]
+                m.weight.copy_(1 + 0.1 * torch.randn(c, generator=g))
+                m.bias.copy_(0.1 * torch.randn(c, generator=g))
+                m.running_mean.copy_(0.1 * torch.randn(c, generator=g))
+                m.running_var.copy_((1 + 0.1 * torch.randn(c, generator=g)).abs())
+
+
+def phase_epilogue(card):
+    """Phase 17: the bias + BatchNorm + ReLU epilogue kernel against the
+    three ATen passes it replaces, at every conv shape of the serving chunks
+    of 170² slices, and whole 170³ volumes through the serving stream with
+    the route open and closed."""
+    from pmpu_tpu_torch import VolumeEvaluator, make_task
+    from pmpu_tpu_torch.inference.engine import eval_chunk_plan
+    from pmpu_tpu_torch.models import unet
+    from pmpu_tpu_torch.ops.cuda.bias_bn_relu import bias_bn_relu_, bias_bn_relu_reference
+
+    print("phase 17: the conv epilogue (bias + BatchNorm + ReLU) against the three ATen passes")
+    cube = 170
+    shapes = epilogue_shapes(cube, FULL_WIDTH)
+    require(sum(shapes.values()) == 28, f"epilogue shapes {shapes}")
+    out = {"cases": []}
+    bad = []
+    for views in (3, 6):
+        n = eval_chunk_plan(views * cube, cube, cube, 0)[0]
+        for (c, h), count in sorted(shapes.items()):
+            y, args = epilogue_case(n, c, h, seed=n * c + h)
+            got = bias_bn_relu_(y.clone(), *args)
+            want = bias_bn_relu_reference(y.clone(), *args)
+            torch.cuda.synchronize()
+            off = got.view(torch.int16) != want.view(torch.int16)
+            same = not bool(off.any())
+            if not same:
+                diff = off.nonzero()[:4].tolist()
+                bad.append(f"N={n} C={c} H={h}: {int(off.sum())} of {got.numel()} differ, "
+                           f"e.g. at {diff}: y "
+                           f"{[float(y[tuple(i)]) for i in diff]}, kernel "
+                           f"{[float(got[tuple(i)]) for i in diff]}, ATen "
+                           f"{[float(want[tuple(i)]) for i in diff]}, channel params "
+                           f"{[[float(a[i[1]]) for a in args[:5]] for i in diff]}")
+            # timed over rotating buffers of 200 MB or more, so that each
+            # call reads its activation from device memory, not from L2
+            bufs = [y.clone() for _ in range(max(1, -(-200_000_000 // (2 * y.numel()))))]
+            it = iter(range(1 << 30))
+
+            def nxt():
+                return bufs[next(it) % len(bufs)]
+
+            bias, mean, var, weight, shift, eps = args
+            ms = {"kernel": event_ms(lambda: bias_bn_relu_(nxt(), *args), 20),
+                  "plain": event_ms(lambda: bias_bn_relu_reference(nxt(), *args), 20),
+                  "bias_add": event_ms(lambda: nxt().add_(bias.to(torch.bfloat16)[:, None, None]),
+                                       20),
+                  "batch_norm": event_ms(lambda: torch.nn.functional.batch_norm(
+                      nxt(), mean, var, weight, shift, False, 0.0, eps), 20),
+                  "relu": event_ms(lambda: torch.relu(nxt()), 20)}
+            bound = 2 * 2 * y.numel() / PEAK_HBM_BYTES * 1e3
+            case = {"views": views, "n": n, "c": c, "h": h, "convs_a_slice": count,
+                    "bit_equal": same, "bound_ms": bound, **{f"{k}_ms": v for k, v in ms.items()}}
+            out["cases"].append(case)
+            passes = ms["bias_add"] + ms["batch_norm"] + ms["relu"]
+            print(f"  [{card}] {views} views, N={n} C={c} {h}²: bit-equal {same}; kernel "
+                  f"{ms['kernel']:.4f} ms, bound {bound:.4f} ms "
+                  f"({100 * bound / ms['kernel']:.1f} %), "
+                  f"plain {ms['plain']:.4f} ms, the three passes {passes:.4f} ms "
+                  f"({ms['bias_add']:.4f} + {ms['batch_norm']:.4f} + {ms['relu']:.4f})")
+            del y, got, want, off, bufs
+    require(not bad, "epilogue kernel differs from the three ATen passes:\n" + "\n".join(bad))
+    for views in (3, 6):
+        cases = [k for k in out["cases"] if k["views"] == views]
+        per_slice = {f: sum(k[f] * k["convs_a_slice"] for k in cases) / cases[0]["n"]
+                     for f in ("kernel_ms", "bound_ms", "plain_ms")}
+        vol = out[f"{views}view_ms_a_volume"] = {f: v * views * cube
+                                                 for f, v in per_slice.items()}
+        print(f"  [{card}] {views} views, ms a 170³ volume (28 convs a slice, weighted): "
+              f"kernel {vol['kernel_ms']:.2f}, bound {vol['bound_ms']:.2f}, "
+              f"plain {vol['plain_ms']:.2f}")
+
+    # whole volumes: the route open, then closed (the three modules)
+    task = make_task("probunet", num_filters=FULL_WIDTH, latent_dim=6, n_classes=3,
+                     no_convs_fcomb=4, dtype=torch.bfloat16, seed=0)
+    seed_batchnorm(task.net, 17)
+    vols = [synthetic_volume(cube, seed=s)[0] for s in (170, 171)]
+    out["volumes"] = {}
+    for views in (3, 6):
+        ev = VolumeEvaluator(task, n_samples=5, num_views=views, input_dtype="uint8")
+        ev.predict_volumes_pipelined(vols[:1])
+        bias_bn_relu_.launches = 0
+        fused = ev.predict_volumes_pipelined(vols, seed=3)
+        launches = bias_bn_relu_.launches / len(vols)
+        route = unet._fused
+        unet._fused = lambda *a: False
+        try:
+            eager = ev.predict_volumes_pipelined(vols, seed=3)
+        finally:
+            unet._fused = route
+        require(bias_bn_relu_.launches == launches * len(vols), "the closed route launched")
+        chunks = eval_chunk_plan(views * cube, cube, cube, 0)[1]
+        equal = all(np.array_equal(a, b) for a, b in zip(fused, eager))
+        print(f"  [{card}] {views} views, 2 volumes of 170³ through predict_volumes_pipelined: "
+              f"labels bit-equal to the three modules {equal}; {launches:g} epilogue launches a "
+              f"volume (28 × {chunks} chunks = {28 * chunks})")
+        require(equal, f"{views} views: labels differ from the three modules'")
+        require(launches == 28 * chunks, f"{views} views: {launches} epilogue launches a volume")
+        out["volumes"][f"{views}view"] = {"bit_equal": equal, "launches_per_volume": launches}
+        del ev
+    del task
+    torch.cuda.empty_cache()
+    return out
 
 
 def _cuda_chain(seed, shapes, kernel=3):
@@ -4726,6 +4895,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     summary["tools_rest"] = phase_tools_rest(card, min(summary["wall_s_per_volume"]))
     clock.append(("tools_rest", time.perf_counter()))
+    torch.cuda.empty_cache()
+    summary["epilogue"] = phase_epilogue(card)
+    clock.append(("epilogue", time.perf_counter()))
     summary["phase_s"] = {name: b - a for (_, a), (name, b) in zip(clock, clock[1:])}
     summary["phase_s"]["build"] = build_s
     print(f"seconds by phase: { {k: round(v, 1) for k, v in summary['phase_s'].items()} }; "
@@ -4768,6 +4940,13 @@ def main() -> int:
         # debug_probunet_drift, (h) the 6-view script's model through the eval CLI
         k["tools_launches"] = {tool: c[count]
                                for tool, c in summary["tools_rest"]["launches"].items()}
+    epilogue = summary["epilogue"]
+    kernels.append({"name": "bias_bn_relu_", "route": "cuda",
+                    "source": "pmpu_tpu_torch/ops/cuda/csrc/bias_bn_relu.cu",
+                    "replaces": "none (XLA fuses it into the conv)", "cases": epilogue["cases"],
+                    "ms_a_volume": {v: epilogue[f"{v}_ms_a_volume"] for v in ("3view", "6view")},
+                    "launches_per_volume": {v: r["launches_per_volume"]
+                                            for v, r in epilogue["volumes"].items()}})
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:

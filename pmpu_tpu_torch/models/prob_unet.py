@@ -2,7 +2,8 @@
 
 * ``Encoder``                 — per scale (i>0) 2×2 ceil-mode average pool,
                                 then ``no_convs_per_block`` × [3×3 conv → BN
-                                → ReLU]
+                                → ReLU] (``unet.run_layers``: in inference on
+                                the card, conv + one epilogue launch)
 * ``AxisAlignedConvGaussian`` — Encoder → global spatial mean (f32) → 1×1
                                 f32 conv → (μ, log σ) → ``DiagGaussian``
 * ``Fcomb``                   — the ``no_convs_fcomb`` 1×1 convs that combine
@@ -27,7 +28,7 @@ from torch import nn
 
 from pmpu_tpu_torch.models import initializers as pinit
 from pmpu_tpu_torch.models.distributions import DiagGaussian
-from pmpu_tpu_torch.models.unet import Conv2d, UNet, conv_bn_relu, to_nchw, to_nhwc
+from pmpu_tpu_torch.models.unet import Conv2d, UNet, conv_bn_relu, run_layers, to_nchw, to_nhwc
 from pmpu_tpu_torch.ops.cuda.fcomb_mean import decode_samples_reference
 
 
@@ -62,7 +63,7 @@ class Encoder(nn.Module):
     def forward(self, x_nchw):
         if self.dtype is not None:
             x_nchw = x_nchw.to(self.dtype)
-        return self.layers(x_nchw)
+        return run_layers(self.layers, x_nchw)
 
 
 class AxisAlignedConvGaussian(nn.Module):

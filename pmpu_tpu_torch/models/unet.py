@@ -27,11 +27,15 @@ An f32 conv runs with TF32 off (``device.exact_f32_if``), as the JAX package
 computes it; a bf16 conv enters no such context. The backward convs of a
 train step run after these guards have exited: the step guards its
 backward pass itself (``train/steps.py::backward``).
+
+In inference on the card (eval BatchNorm, grad off, a bf16 conv on a CUDA
+tensor) each (Conv2d, BatchNorm2d, ReLU) triple of a ``DoubleConv`` or an
+encoder tower runs as cuDNN's conv without its bias and one launch of the
+``bias_bn_relu`` kernel, bit-equal to the three modules (``run_layers``).
 """
 
 from __future__ import annotations
 
-import itertools
 from typing import Optional, Sequence
 
 import torch
@@ -40,6 +44,8 @@ from torch import nn
 
 from pmpu_tpu_torch.device import exact_f32_if
 from pmpu_tpu_torch.models import initializers as pinit
+from pmpu_tpu_torch.ops.cuda import bias_bn_relu as epilogue
+from pmpu_tpu_torch.utils import profiling
 
 
 class Conv2d(nn.Conv2d):
@@ -53,30 +59,36 @@ class Conv2d(nn.Conv2d):
         self.compute_dtype = compute_dtype
         self.init_fn = init_fn
 
-    def forward(self, x):
+    def forward(self, x, with_bias: bool = True):
+        """The conv; ``with_bias=False`` leaves the bias out (the caller adds
+        it, as ``run_layers``'s epilogue does)."""
         cd = self.compute_dtype
-        w, b = self.weight, self.bias
+        w, b = self.weight, self.bias if with_bias else None
         if cd is not None:
-            x, w, b = x.to(cd), w.to(cd), b.to(cd)
+            x, w = x.to(cd), w.to(cd)
+            b = None if b is None else b.to(cd)
         with exact_f32_if(x.dtype):
             return self._conv_forward(x, w, b)
 
-    def forward_split(self, xs):
+    def forward_split(self, xs, with_bias: bool = True):
         """``forward(cat(xs, channels))`` without the concatenation: one conv
         per input over its slice of the kernel's input channels, summed,
         then the bias (JAX ``unet.py::_SplitConcatConv``, whose rounding
         points it keeps: in bf16 each partial conv rounds to bf16, the sum
         and the bias add in bf16)."""
         cd = self.compute_dtype
-        w, b = self.weight, self.bias
+        w = self.weight
         if cd is not None:
-            xs, w, b = [x.to(cd) for x in xs], w.to(cd), b.to(cd)
+            xs, w = [x.to(cd) for x in xs], w.to(cd)
         off, out = 0, None
         with exact_f32_if(xs[0].dtype):
             for x in xs:
                 y = F.conv2d(x, w[:, off:off + x.shape[1]], None, padding=self.padding)
                 out = y if out is None else out + y
                 off += x.shape[1]
+        if not with_bias:
+            return out
+        b = self.bias if cd is None else self.bias.to(cd)
         return out + b[:, None, None]
 
 
@@ -165,6 +177,73 @@ def conv_bn_relu(cin, cout, compute_dtype, init_fn=pinit.torch_default_):
     ]
 
 
+def _channels_last(t) -> bool:
+    """Whether the strides of a 4-D ``t`` read as channels_last, as ATen
+    reads them (a channel stride of 1, so also where C is 1)."""
+    return t.dim() == 4 and t.stride(1) == 1 and t.is_contiguous(memory_format=torch.channels_last)
+
+
+def _out_numel(conv, x) -> int:
+    """The elements of ``conv``'s output for the input ``x``."""
+    n = x.shape[0] * conv.out_channels
+    for size, k, s, p, d in zip(x.shape[2:], conv.kernel_size, conv.stride, conv.padding,
+                                conv.dilation):
+        n *= (size + 2 * p - d * (k - 1) - 1) // s + 1
+    return n
+
+
+def _fused(layers, i: int, x) -> bool:
+    """Whether ``layers[i:i + 3]`` is a (Conv2d, BatchNorm2d, ReLU) triple
+    that runs as cuDNN's conv without its bias and one ``bias_bn_relu``
+    launch, decided from the conv's input and the modules: inference (eval
+    BatchNorm with running statistics, grad off, no NaN-check hooks) of a
+    bf16 conv of a CUDA tensor, with cuDNN on (ATen then adds a conv's bias
+    as a pass of its own, whose rounding the kernel repeats), the input or
+    the weight channels_last (cuDNN's output then is), f32 parameters, and
+    an output the kernel takes (C a multiple of 8 up to its maximum, under
+    2^31 − 1 elements). ``x`` is the conv's input, or the tuple of its split
+    inputs."""
+    if i + 2 >= len(layers) or profiling._nan_handle is not None:
+        return False
+    conv, bn, relu = layers[i:i + 3]
+    x = x[0] if isinstance(x, tuple) else x
+    if not (type(conv) is Conv2d and type(bn) is BatchNorm2d and type(relu) is nn.ReLU
+            and not bn.training and not torch.is_grad_enabled() and x.is_cuda
+            and (conv.compute_dtype or x.dtype) == torch.bfloat16
+            and torch.backends.cudnn.enabled):
+        return False
+    params = (conv.bias, bn.running_mean, bn.running_var, bn.weight, bn.bias)
+    return (all(t is not None and t.dtype == torch.float32 for t in params)
+            and (_channels_last(x) or _channels_last(conv.weight))
+            and conv.out_channels % 8 == 0 and conv.out_channels <= epilogue.MAX_CHANNELS
+            and isinstance(conv.padding, tuple) and _out_numel(conv, x) < 2**31 - 1)
+
+
+def run_layers(layers: nn.Sequential, x, split: bool = False):
+    """``layers(x)``, each triple that ``_fused`` admits as two launches: the
+    conv without its bias, then the bias, BatchNorm and ReLU in place by the
+    ``bias_bn_relu`` kernel. Every other module runs as it is; names and
+    parameters stay. A fused triple calls its conv module but not its
+    BatchNorm2d and ReLU modules, so their forward hooks do not run (the
+    NaN checks' global hook closes the route). ``split``: ``x`` is the
+    (skip, up) pair that the first conv takes unconcatenated
+    (``Conv2d.forward_split``)."""
+    mods, i = list(layers), 0
+    while i < len(mods):
+        m = mods[i]
+        first_split = split and i == 0
+        if not _fused(mods, i, x):
+            x = m.forward_split(x) if first_split else m(x)
+            i += 1
+            continue
+        bn = mods[i + 1]
+        y = m.forward_split(x, with_bias=False) if first_split else m(x, with_bias=False)
+        x = epilogue.bias_bn_relu_(y, m.bias, bn.running_mean, bn.running_var, bn.weight,
+                                   bn.bias, bn.eps)
+        i += 3
+    return x
+
+
 class DoubleConv(nn.Module):
     def __init__(self, cin, cout, compute_dtype=None):
         super().__init__()
@@ -174,7 +253,7 @@ class DoubleConv(nn.Module):
         )
 
     def forward(self, x):
-        return self.double_conv(x)
+        return run_layers(self.double_conv, x)
 
 
 class Down(nn.Module):
@@ -212,11 +291,7 @@ class Up(nn.Module):
         x1 = _pad_to_match(self.up(x1), x2)
         if not self.split:
             return self.conv(torch.cat([x2, x1], dim=1))  # skip first
-        layers = self.conv.double_conv
-        y = layers[0].forward_split((x2, x1))
-        for m in itertools.islice(layers, 1, None):
-            y = m(y)
-        return y
+        return run_layers(self.conv.double_conv, (x2, x1), split=True)
 
 
 class OutConv(nn.Module):

@@ -184,12 +184,13 @@ def test_kernel_modules_build_and_load_nothing_on_cpu():
     """Importing the kernel modules and running every wrapper on CPU
     tensors (their plain versions), the int8 and the 6-view paths included,
     starts no nvcc, loads no library and counts no launch on either fcomb
-    route."""
+    route, nor of the conv epilogue."""
     code = (
         "import subprocess, torch\n"
         "def no_nvcc(*a, **k): raise AssertionError('nvcc started')\n"
         "subprocess.Popen = no_nvcc\n"
-        "from pmpu_tpu_torch.ops.cuda import _build, fcomb_mean, oblique_gather, qconv, slice_gather\n"
+        "from pmpu_tpu_torch.ops.cuda import (_build, bias_bn_relu, fcomb_mean, oblique_gather,\n"
+        "                                     qconv, slice_gather)\n"
         "from pmpu_tpu_torch import VolumeEvaluator\n"
         "from pmpu_tpu_torch.data.sampler import make_oblique_view_stacks, sample_batch_vt\n"
         "from pmpu_tpu_torch.train.tasks import make_task\n"
@@ -213,6 +214,7 @@ def test_kernel_modules_build_and_load_nothing_on_cpu():
         "      sum(fcomb_mean.fcomb_mean_decode.launches_by_route.values()),\n"
         "      slice_gather.gather_normalize_planes.launches,\n"
         "      qconv.fused_qchain.launches,\n"
-        "      oblique_gather.oblique_planes.launches)\n"
+        "      oblique_gather.oblique_planes.launches,\n"
+        "      bias_bn_relu.bias_bn_relu_.launches)\n"
     )
-    assert _run(code).split() == ["0", "0", "0", "0", "0", "0"]
+    assert _run(code).split() == ["0", "0", "0", "0", "0", "0", "0"]
