@@ -1,0 +1,5 @@
+"""``host_dispatch_ms_per_volume`` of the hpunet backlog, where it moves ``volumes_per_s`` too."""
+
+from benchmark.core import metric_reader
+
+read = metric_reader("host_dispatch_ms_per_volume").read

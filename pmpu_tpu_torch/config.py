@@ -5,10 +5,13 @@
 because importing the JAX package pulls in jax and flax.
 
 ``Config`` has the JAX package's fields and defaults, so a configuration
-moves between the two packages field for field; the CLIs take the JAX
-package's flags with its defaults, plus ``--device``. A flag of a path the
-port has not ported yet is accepted by the parser and refused by the entry
-point that would need it (the train loop names each one).
+moves between the two packages field for field, save ``num_filters``: None
+here, each model's own widths (``resolved_num_filters``; the JAX package's
+default for the U-Net and the probunet), since the hpunet has others. The
+CLIs take the JAX package's flags with its defaults (``--num-filters`` as
+``num_filters``), plus ``--device``. A flag of a path the port has not
+ported yet is accepted by the parser and refused by the entry point that
+would need it (the train loop names each one).
 """
 
 from __future__ import annotations
@@ -26,6 +29,9 @@ def parse_num_filters(v: str) -> tuple:
     return tuple(int(x) for x in v.split(","))
 
 
+NUM_FILTERS = (64, 128, 256, 512, 1024)  # the reference's widths
+
+
 @dataclass
 class Config:
     # reference train.py flags (train.py:199-225)
@@ -38,13 +44,13 @@ class Config:
     load: Optional[str] = None
     scale: float = 1.0  # accepted for CLI parity (unused by the reference too)
     val: float = 10.0  # validation percent
-    net: str = "unet"  # unet | probunet
+    net: str = "unet"  # unet | probunet | hpunet (inference only)
     dir: Optional[str] = None
 
     # model hyperparameters (reference construction sites train.py:241-244)
     n_channels: int = 1
     n_classes: Optional[int] = None  # default: 1 for unet, 3 for probunet
-    num_filters: Sequence[int] = (64, 128, 256, 512, 1024)
+    num_filters: Optional[Sequence[int]] = None  # default: the model's own widths
     latent_dim: int = 6
     no_convs_fcomb: int = 4
     beta: float = 10.0
@@ -95,14 +101,27 @@ class Config:
             return self.n_classes
         return 1 if self.net == "unet" else 3
 
+    def resolved_num_filters(self) -> Optional[tuple]:
+        """The widths by level: ``num_filters``, else the reference's for the
+        U-Net and the probunet, and None for the hpunet (its task's default,
+        the published widths)."""
+        if self.num_filters is not None:
+            return tuple(self.num_filters)
+        return None if self.net == "hpunet" else NUM_FILTERS
+
     def task_kwargs(self) -> dict:
         """Keyword arguments of ``pmpu_tpu_torch.train.tasks.make_task``."""
         kw = dict(
             n_channels=self.n_channels,
             n_classes=self.resolved_n_classes(),
-            num_filters=tuple(self.num_filters),
             dtype=torch.bfloat16 if self.bf16 else None,
         )
+        filters = self.resolved_num_filters()
+        if self.net == "hpunet":
+            if filters is not None:  # its widths by level
+                kw["channels_per_block"] = filters
+            return kw
+        kw["num_filters"] = filters
         if self.split_decoder:
             kw["split_decoder"] = True
         if self.net == "unet" and self.loss != "auto":
@@ -144,7 +163,9 @@ def add_eval_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     ``--device``."""
     p.add_argument("-f", "--load", dest="load", type=str, default=None)
     p.add_argument("-d", "--dir", dest="dir", type=str, default=None)
-    p.add_argument("-m", "--model", dest="net", type=str, default="unet")
+    p.add_argument("-m", "--model", dest="net", type=str, default="unet",
+                   help="unet, probunet or hpunet (the Hierarchical Probabilistic U-Net; "
+                   "--num-filters its widths by level, default the published ones)")
     return _add_extension_args(p)
 
 
@@ -178,8 +199,9 @@ def _add_extension_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    "through to the output NIfTI header")
     g.add_argument("--n-classes", dest="n_classes", type=int, default=None)
     g.add_argument("--num-filters", dest="num_filters", type=parse_num_filters,
-                   default=(64, 128, 256, 512, 1024),
-                   help="comma-separated encoder widths (reference default 64,128,256,512,1024)")
+                   default=None,
+                   help="comma-separated encoder widths (default: the model's own; the "
+                   "reference's 64,128,256,512,1024 for unet and probunet)")
     g.add_argument("--latent-dim", dest="latent_dim", type=int, default=6)
     g.add_argument("--beta", dest="beta", type=float, default=10.0)
     g.add_argument("--no-view-stacks", dest="view_stacks", action="store_false",

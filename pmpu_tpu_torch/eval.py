@@ -103,7 +103,7 @@ def _evaluate(cfg, device, rank: int, n_ranks: int) -> int:
 
     evaluator = VolumeEvaluator(
         task,
-        n_samples=cfg.eval_samples if cfg.net == "probunet" else 1,
+        n_samples=cfg.eval_samples if task.is_probabilistic else 1,
         eval_batch=cfg.eval_batch,
         num_views=cfg.num_views,
         quantize=cfg.quantize,
@@ -130,7 +130,7 @@ def _evaluate(cfg, device, rank: int, n_ranks: int) -> int:
     if cfg.save_uncertainty and lead:
         logging.info("wrote uncertainty maps to %s", cfg.save_uncertainty)
 
-    if cfg.net == "probunet" and cfg.ged > 0:
+    if task.is_probabilistic and cfg.ged > 0:
         # one more pass a volume, N prior draws sharing the backbone and prior
         geds = [evaluator.ged_volume(store.images[i], store.labels[i], cfg.ged,
                                      seed=derive_seed(cfg.seed, 1000 + i))

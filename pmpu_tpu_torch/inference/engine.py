@@ -9,7 +9,9 @@ One volume's path:
   the isotropic oblique views in one oblique-plane kernel launch →
   (V·S,S,S) → per-slice max normalization (gather-normalize kernel) →
   chunked batched model (U-Net backbone and prior run once per chunk;
-  probunet averages n prior draws through the fcomb mean-decode kernel) →
+  probunet averages n prior draws through the fcomb mean-decode kernel;
+  the hpunet runs its encoder once per chunk and decodes the n draws'
+  multi-scale latents and stitching decoder in one batched pass) →
   softmax → back to the voxel grid (inverse transposes, or a trilinear
   resample per oblique view) → mean fusion → argmax (2-bit packed to the
   host) and per-class Dice
@@ -209,12 +211,21 @@ class HostPool:
         self._free.setdefault((tuple(buf.shape), buf.dtype), []).append((buf, ready))
 
 
+def _refuse(task, path: str, what: str) -> None:
+    """Raise where ``task.lacks`` names the evaluator path ``path``."""
+    why = getattr(task, "lacks", {}).get(path)
+    if why:
+        raise ValueError(f"{what} has no {task.name} path: {why}")
+
+
 class VolumeEvaluator:
     """Batched whole-volume evaluator for one task.
 
     Args:
-      task: ``UNetTask`` | ``ProbUNetTask`` (``pmpu_tpu_torch.train.tasks``),
-            its network already on ``device``
+      task: ``UNetTask`` | ``ProbUNetTask`` | ``HPUNetTask``
+            (``pmpu_tpu_torch.train.tasks``), its network already on
+            ``device``; a task with ``model_logits`` decodes its own draws,
+            and the evaluator paths named in a task's ``lacks`` raise
       n_samples: prior draws per slice for the probabilistic model
       eval_batch: slices per model call; 0 = auto, < 0 = the whole slab
       num_views: 3 = the standard views (the reference's path); else that
@@ -262,6 +273,10 @@ class VolumeEvaluator:
         mesh=None,
     ):
         self.device = resolve_device(device)
+        if quantize:
+            _refuse(task, "int8", f"quantize={quantize!r}")
+        if mesh is not None and mesh.size > 1:
+            _refuse(task, "mesh", f"a mesh of {mesh.size} ranks")
         if mesh is not None and mesh.size > 1 and mesh.size != world()[1]:
             raise ValueError(f"the mesh spans {mesh.size} ranks, the world has {world()[1]}")
         self.mesh = mesh
@@ -429,7 +444,8 @@ class VolumeEvaluator:
         kernel (its plain version on the CPU). With ``quantize="int8"`` the
         backbone and the prior run int8-resident on the conv-chain kernel.
         ``generator`` draws the prior noise; a list of V generators draws
-        it for V equal runs of slices, one generator each."""
+        it for V equal runs of slices, one generator each. A task with
+        ``model_logits`` (the hpunet's) decodes its draws itself."""
         net = self.task.net
         cd = net.dtype or torch.float32
         if not self.task.is_probabilistic:
@@ -439,6 +455,9 @@ class VolumeEvaluator:
             else:
                 out = net(x)
             return out[None] if per_sample else out
+        decode = getattr(self.task, "model_logits", None)
+        if decode is not None:
+            return decode(x, generator, self.n_samples, per_sample, self.mean_z)
         if self.quantize:
             feats, loc, scale = qz.probunet_features_prior_int8(self._qvars, x, net, dtype=cd)
         else:
@@ -871,7 +890,10 @@ class VolumeEvaluator:
         :meth:`batched_hbm_estimate` exceeds 0.90 × ``device_hbm_limit``, or
         when the first group runs out of device memory; split over ranks an
         out-of-memory error raises instead (a rank that fell back alone
-        would leave the others in a collective)."""
+        would leave the others in a collective). A task whose ``lacks``
+        names ``batched_store`` (the hpunet: the estimate is not fitted to
+        it) raises."""
+        _refuse(self.task, "batched_store", "evaluate_store_batched")
         save_dir, uncertainty_dir = self._writes(save_dir, uncertainty_dir)
         vb = max(1, volumes_per_batch)
         n = len(store)

@@ -57,8 +57,9 @@ def get_args(argv=None):
                    help="output classes (needed for raw torch state_dict "
                    "checkpoints, which carry no architecture record)")
     p.add_argument("--num-filters", dest="num_filters", type=parse_num_filters,
-                   default=(64, 128, 256, 512, 1024),
-                   help="comma-separated encoder widths (torch checkpoints)")
+                   default=None,
+                   help="comma-separated encoder widths (torch checkpoints; default: the "
+                   "model's own)")
     p.add_argument("--identity-affine", dest="identity_affine", action="store_true",
                    help="strict reference-parity exports: padded cube + "
                    "identity affine (default: un-pad to the source shape and "
@@ -111,7 +112,7 @@ def main(argv=None) -> int:
 
     ev = VolumeEvaluator(
         task,
-        n_samples=cfg.eval_samples if cfg.net == "probunet" else 1,
+        n_samples=cfg.eval_samples if task.is_probabilistic else 1,
         eval_batch=cfg.eval_batch,
         num_views=cfg.num_views,
         quantize=cfg.quantize,

@@ -95,8 +95,9 @@ def get_args(argv=None):
                    help="output classes (needed for raw torch state_dict "
                    "checkpoints, which carry no architecture record)")
     p.add_argument("--num-filters", dest="num_filters", type=parse_num_filters,
-                   default=(64, 128, 256, 512, 1024),
-                   help="comma-separated encoder widths (torch checkpoints)")
+                   default=None,
+                   help="comma-separated encoder widths (torch checkpoints; default: the "
+                   "model's own)")
     p.add_argument("--rss-limit-mb", dest="rss_limit_mb", type=float, default=0.0,
                    help="re-exec the daemon when its host RSS exceeds this "
                    "after a served batch (0 = off); restarts skip inputs whose "
@@ -217,7 +218,7 @@ def main(argv=None) -> int:
 
     ev = VolumeEvaluator(
         task,
-        n_samples=cfg.eval_samples if cfg.net == "probunet" else 1,
+        n_samples=cfg.eval_samples if task.is_probabilistic else 1,
         eval_batch=cfg.eval_batch,
         num_views=cfg.num_views,
         quantize=args.quantize,

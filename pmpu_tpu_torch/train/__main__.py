@@ -55,6 +55,7 @@ from pmpu_tpu_torch.data.volumes import VolumeStore
 from pmpu_tpu_torch.device import resolve_device
 from pmpu_tpu_torch.parallel.mesh import init_distributed, local_device, next_world_env, spawn_world
 from pmpu_tpu_torch.train.loop import RssLimitExceeded, check_ported, train_net
+from pmpu_tpu_torch.train.tasks import NOT_TRAINABLE
 
 
 def main(argv=None) -> int:
@@ -67,6 +68,8 @@ def main(argv=None) -> int:
     )
     args = add_train_args(parser).parse_args(argv)
     cfg = config_from_args(args)
+    if cfg.net == "hpunet":
+        parser.error(f"-m hpunet: {NOT_TRAINABLE}")
     device = resolve_device(args.device)
     spawn = ((cfg.data_parallel or cfg.sharded_volumes) and "WORLD_SIZE" not in os.environ
              and device.type == "cuda" and torch.cuda.device_count() > 1)

@@ -342,7 +342,7 @@ def load_for_inference(path: str, cfg, device=None):
                 net=mc["net"],
                 n_channels=mc.get("n_channels", 1),
                 n_classes=mc.get("n_classes"),
-                num_filters=tuple(mc.get("num_filters", cfg.num_filters)),
+                num_filters=mc.get("num_filters", cfg.num_filters),
                 latent_dim=mc.get("latent_dim", cfg.latent_dim),
                 no_convs_fcomb=mc.get("no_convs_fcomb", cfg.no_convs_fcomb),
                 beta=mc.get("beta", cfg.beta),

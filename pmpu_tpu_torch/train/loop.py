@@ -106,7 +106,7 @@ from pmpu_tpu_torch.parallel.sharding import (
 from pmpu_tpu_torch.train import checkpoint as ckpt
 from pmpu_tpu_torch.train.schedule import ReduceLROnPlateau
 from pmpu_tpu_torch.train.steps import create_train_state, make_eval_step, make_train_step
-from pmpu_tpu_torch.train.tasks import make_task
+from pmpu_tpu_torch.train.tasks import NOT_TRAINABLE, make_task
 from pmpu_tpu_torch.utils.colorize import mask_to_image
 from pmpu_tpu_torch.utils.profiling import StepTimer, enable_nan_checks, rss_mb, trace
 from pmpu_tpu_torch.utils.tblog import MetricWriter
@@ -116,7 +116,10 @@ log = logging.getLogger(__name__)
 def check_ported(cfg: Config):
     """Raise, naming every flag of ``cfg`` that asks for a training path the
     port does not have: ``--async-checkpoints`` (Orbax directories, which
-    only orbax, a jax package, reads and writes)."""
+    only orbax, a jax package, reads and writes), and ``-m hpunet``
+    (inference only)."""
+    if cfg.net == "hpunet":
+        raise NotImplementedError(NOT_TRAINABLE)
     if cfg.async_checkpoints:
         raise NotImplementedError(
             "not in pmpu_tpu_torch's training (Orbax checkpoints are not ported): "
@@ -372,7 +375,7 @@ def _model_config(cfg: Config, task) -> dict:
         "net": cfg.net,
         "n_channels": cfg.n_channels,
         "n_classes": task.n_classes,
-        "num_filters": list(cfg.num_filters),
+        "num_filters": list(cfg.resolved_num_filters()),
     }
     if cfg.net == "probunet":
         d.update(latent_dim=cfg.latent_dim, no_convs_fcomb=cfg.no_convs_fcomb, beta=cfg.beta)

@@ -2,7 +2,8 @@
 owns the network, says how many classes it predicts and whether it is
 probabilistic, and gives the training loss (``train_loss``), the
 validation loss with its predictions (``val_loss``) and the prediction of
-a batch (``predict``). The inference engine runs the network itself.
+a batch (``predict``). The inference engine runs the network itself; the
+hpunet's task decodes its draws for it (``model_logits``).
 
 A task's network is made from a seed: initialized on the CPU with a
 ``torch.Generator`` (the reference's init families,
@@ -25,9 +26,10 @@ import contextlib
 from typing import Optional, Sequence
 
 import torch
+from torch.profiler import record_function
 
 from pmpu_tpu_torch.device import resolve_device
-from pmpu_tpu_torch.models import ProbabilisticUNet, UNet
+from pmpu_tpu_torch.models import HierarchicalProbUNet, ProbabilisticUNet, UNet, hprob_unet
 from pmpu_tpu_torch.models.initializers import initialize
 from pmpu_tpu_torch.ops import losses
 
@@ -197,14 +199,90 @@ class ProbUNetTask:
         return loss, preds
 
 
+NOT_TRAINABLE = ("training the hpunet needs its posterior core and the GECO loss, "
+                 "which the port does not have: the hpunet runs in inference only")
+
+
+class HPUNetTask:
+    """The Hierarchical Probabilistic U-Net (``models/hprob_unet.py``) for
+    inference: ``model_logits`` decodes its draws for
+    ``VolumeEvaluator._model_logits``. Without the posterior core and the
+    GECO loss it has no training loss: ``train=True`` raises."""
+
+    name = "hpunet"
+    is_probabilistic = True
+    # the evaluator paths it lacks, and why (``VolumeEvaluator`` raises)
+    lacks = {
+        "int8": "the int8 tree is the U-Net's and the probunet's",
+        "mesh": "it runs on one rank",
+        "batched_store": "the memory guard's estimate is fitted to the probunet only",
+    }
+
+    def __init__(
+        self,
+        n_channels: int = 1,
+        n_classes: int = 3,
+        channels_per_block: Sequence[int] = hprob_unet.CHANNELS_PER_BLOCK,
+        down_channels_per_block: Optional[Sequence[int]] = None,
+        convs_per_block: int = 3,
+        blocks_per_level: int = 3,
+        latent_dims: Sequence[int] = hprob_unet.LATENT_DIMS,
+        dtype: Optional[torch.dtype] = None,
+        device=None,
+        seed: int = 0,
+        train: bool = False,
+    ):
+        if train:
+            raise NotImplementedError(NOT_TRAINABLE)
+        self.n_classes = n_classes
+        self.net = _place(
+            HierarchicalProbUNet(n_channels, n_classes, channels_per_block,
+                                 down_channels_per_block, convs_per_block, blocks_per_level,
+                                 latent_dims, dtype),
+            device, seed, False,
+        )
+
+    def model_logits(self, x, generator, n_samples: int, per_sample: bool = False,
+                     mean_z: bool = False):
+        """(N,H,W,1) slices → (N,H,W,C) f32 logits, the mean over
+        ``n_samples`` draws, or all of them (n_samples,N,H,W,C) with
+        ``per_sample``: the encoder once (span ``hpu_encoder``); the noise by
+        latent level, one ``randn`` a level in level order, (n_samples, n,
+        latent, h, w) f32 from ``generator``, or from each of a list of V
+        generators for V equal runs of slices; the latent decoder of all
+        draws in one batched pass (``hpu_latents``); the stitching decoder,
+        the class head and the mean over the draws (``hpu_stitch``).
+        ``mean_z`` decodes μ at every level."""
+        net = self.net
+        with record_function("hpu_encoder"):
+            enc = net.encode(x)
+        with record_function("hpu_latents"):
+            eps = None
+            if not mean_z:
+                gens = generator if isinstance(generator, list) else [generator]
+                n = x.shape[0] // len(gens)
+                eps = []
+                for lat, (h, w) in zip(net.latent_dims, net.latent_sizes(enc)):
+                    draws = [torch.randn((n_samples, n, lat, h, w), generator=g,
+                                         device=x.device) for g in gens]
+                    eps.append(draws[0] if len(draws) == 1 else torch.cat(draws, dim=1))
+            feats = net.latents(enc, eps)
+        with record_function("hpu_stitch"):
+            logits = net.stitch(feats, enc)
+            return logits if per_sample else logits.mean(0)
+
+
 def make_task(name: str, **kw):
-    """Factory keyed by the reference's ``-m unet|probunet`` flag; ``device``
-    None means ``"cuda"``, ``seed`` makes the random weights and
-    ``train=True`` gives the network in train mode with gradients on."""
+    """Factory keyed by the reference's ``-m unet|probunet`` flag, and
+    ``hpunet`` (inference only); ``device`` None means ``"cuda"``, ``seed``
+    makes the random weights and ``train=True`` gives the network in train
+    mode with gradients on."""
     if name == "unet":
         kw.setdefault("n_classes", 1)
         return UNetTask(**kw)
     if name == "probunet":
         kw.setdefault("n_classes", 3)
         return ProbUNetTask(**kw)
-    raise ValueError(f"unknown model {name!r} (expected unet|probunet)")
+    if name == "hpunet":
+        return HPUNetTask(**kw)
+    raise ValueError(f"unknown model {name!r} (expected unet|probunet|hpunet)")

@@ -82,6 +82,13 @@ def _torch_export(tree, name, nf=(4, 8)):
 def test_config_matches_jax():
     port = {f.name: f.default for f in dataclasses.fields(config.Config)}
     ref = {f.name: f.default for f in dataclasses.fields(jax_config.Config)}
+    # the port's widths default to each model's own: the JAX default for both of its models
+    assert port.pop("num_filters") is None
+    for net in ("unet", "probunet"):
+        assert config.Config(net=net).resolved_num_filters() == tuple(ref["num_filters"])
+        assert config.Config(net=net).task_kwargs()["num_filters"] == \
+            jax_config.Config(net=net).task_kwargs()["num_filters"]
+    ref.pop("num_filters")
     assert port == ref
     assert config.parse_num_filters("8,16,32") == jax_config.parse_num_filters("8,16,32")
     for kw in (dict(net="unet"), dict(net="probunet"), dict(net="unet", n_classes=4)):
