@@ -7,7 +7,7 @@ Phases, each printing at least one line; any failure exits non-zero:
 
 1. device  — refuse to run without CUDA; print the card's name and power
              limit (nvidia-smi).
-2. build   — compile the five CUDA sources with nvcc for sm_90a (in
+2. build   — compile the CUDA sources with nvcc for sm_90a (in
              parallel).
 3. kernels — each kernel against its plain PyTorch version on the card:
              fcomb mean-decode at (N=16, 128², Cf=f0=64, latent 6, C=3,
@@ -329,6 +329,19 @@ Phases, each printing at least one line; any failure exits non-zero:
              ``predict_volumes_pipelined`` at 3 and 6 views, with the route
              open and closed (``unet._fused`` patched): labels bit-equal, 28
              epilogue launches a chunk.
+18. hpu epilogue — the HPU-Net's residual-block epilogue kernels
+             (``ops/cuda/hpu_epilogue``) against ATen's passes they replace
+             (their plain versions), bit for bit, at the stitching decoder's
+             level-0 shapes (255 = 5 draws × 51 slices of 170², C 12 and 24):
+             bias + ReLU in place, and the residual with both skip kinds,
+             with and without the ReLU copy; NaN, ±inf, ±0 (−0 + −0 into the
+             ReLU), subnormals among the values; each timed (from device
+             memory) beside its bound and ATen's passes, and the host's
+             microseconds a call of each wrapper beside ATen's bias add; then
+             a 170³ volume of the full-width bf16 HPU-Net (3 views, 5 draws)
+             through ``predict_volumes_pipelined`` with the route open and
+             closed (``hprob_unet._fused`` patched): labels and entropy
+             bit-equal, 90 + 45 launches a chunk, wall s each.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--json PATH`` also writes
@@ -733,6 +746,190 @@ def phase_epilogue(card):
         out["volumes"][f"{views}view"] = {"bit_equal": equal, "launches_per_volume": launches}
         del ev
     del task
+    torch.cuda.empty_cache()
+    return out
+
+
+def hpu_epilogue_case(n, c, h, seed):
+    """Two (n,c,h,h) bf16 channels_last activations (a conv's output and a
+    skip) with NaN, ±inf, ±0 and subnormals among their first values, and two
+    (c,) f32 biases with a −0 (so −0 + −0 reaches the ReLU)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    special = torch.tensor([float("nan"), -0.0, float("inf"), -float("inf"), -0.0, 0.0, 1e-39,
+                            -1e-39, -1e-41], device="cuda").to(torch.bfloat16)
+    acts = []
+    for _ in range(2):
+        a = (2 * torch.randn((n, h, h, c), generator=g, device="cuda")).to(torch.bfloat16)
+        a.view(-1)[: special.numel()] = special
+        a.view(-1)[c: c + special.numel()] = special
+        acts.append(a.permute(0, 3, 1, 2))
+    biases = []
+    for _ in range(2):
+        b = 0.05 * torch.randn(c, generator=g, device="cuda")
+        b[1] = -0.0
+        biases.append(b)
+    return acts, biases
+
+
+def host_us(fn, calls=2000):
+    """Host microseconds a call of ``fn`` (tiny tensors: the device keeps up,
+    so the loop runs at the host's pace), after a warm-up."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * host / calls
+
+
+def phase_hpu_epilogue(card):
+    """Phase 18: the HPU-Net's residual-block epilogue kernels against
+    ATen's passes at the stitching decoder's level-0 shapes, their host
+    cost a call, and a 170³ volume through the serving stream with the
+    route open and closed."""
+    from pmpu_tpu_torch import VolumeEvaluator, make_task
+    from pmpu_tpu_torch.inference.engine import eval_chunk_plan
+    from pmpu_tpu_torch.inference.fusion import normalize_slabs
+    from pmpu_tpu_torch.models import hprob_unet
+    from pmpu_tpu_torch.models.unet import Conv2d
+    from pmpu_tpu_torch.ops.cuda import hpu_epilogue as ep
+
+    bf16 = torch.bfloat16
+    print("phase 18: the HPU-Net's residual-block epilogues against ATen's passes")
+    n, h = 5 * 51, 170
+    out = {"cases": [], "host_us": {}}
+    bad = []
+    modes = [("bias_relu", None, False)] + [("residual", skip, relu) for skip in ("x", "conv")
+                                            for relu in (False, True)]
+    for c in (12, 24):
+        (y, s), (b, sb) = hpu_epilogue_case(n, c, h, seed=c)
+        for mode, skip, relu in modes:
+            if mode == "bias_relu":
+                fns, args, reads_writes = (ep.bias_relu_, ep.bias_relu_reference), (b,), 2
+            else:
+                fns = (ep.residual_, ep.residual_reference)
+                args = (b, s, sb if skip == "conv" else None, relu)
+                reads_writes = 3 + relu
+            results = [fn(y.clone(), *args) for fn in fns]
+            got, want = ([r] if mode == "bias_relu" else [t for t in r if t is not None]
+                         for r in results)
+            torch.cuda.synchronize()
+            same = True
+            for k, (a, w) in enumerate(zip(got, want)):
+                if not (a.shape == w.shape and a.is_contiguous(memory_format=torch.channels_last)):
+                    bad.append(f"{mode} C={c} skip={skip} relu={relu}: output {k} "
+                               f"{tuple(a.shape)} strides {a.stride()}")
+                    same = False
+                    continue
+                off = a.view(torch.int16) != w.contiguous(
+                    memory_format=torch.channels_last).view(torch.int16)
+                if bool(off.any()):
+                    same = False
+                    idx = off.nonzero()[:4].tolist()
+                    bad.append(f"{mode} C={c} skip={skip} relu={relu}: output {k}: "
+                               f"{int(off.sum())} of {a.numel()} differ, e.g. at {idx}: y "
+                               f"{[float(y[tuple(i)]) for i in idx]}, s "
+                               f"{[float(s[tuple(i)]) for i in idx]}, kernel "
+                               f"{[float(a[tuple(i)]) for i in idx]}, ATen "
+                               f"{[float(w[tuple(i)]) for i in idx]}")
+            del results, got, want
+            # each call writes a fresh y copy's worth: time over two rotating
+            # buffers (each over 170 MB, far above L2), so reads come from
+            # device memory
+            bufs = [y.clone(), y.clone()]
+            it = iter(range(1 << 30))
+
+            def nxt():
+                return bufs[next(it) % 2]
+
+            ms = {name: event_ms(lambda fn=fn: fn(nxt(), *args), 20)
+                  for name, fn in zip(("kernel", "aten"), fns)}
+            bound = reads_writes * 2 * y.numel() / PEAK_HBM_BYTES * 1e3
+            case = {"mode": mode, "skip": skip, "relu_copy": relu, "n": n, "c": c, "h": h,
+                    "bit_equal": same, "bound_ms": bound,
+                    **{f"{k}_ms": v for k, v in ms.items()}}
+            out["cases"].append(case)
+            print(f"  [{card}] {mode} N={n} C={c} {h}²"
+                  f"{'' if skip is None else f', skip {skip}, relu copy {relu}'}: bit-equal "
+                  f"{same}; kernel {ms['kernel']:.4f} ms, bound {bound:.4f} ms "
+                  f"({100 * bound / ms['kernel']:.1f} %), ATen's passes {ms['aten']:.4f} ms")
+            del bufs
+        del y, s
+    require(not bad, "hpu epilogue differs from ATen's passes:\n" + "\n".join(bad))
+
+    # the host's cost a call, at a tiny shape, beside the ATen pass each replaces
+    (y, s), (b, sb) = hpu_epilogue_case(2, 24, 4, seed=5)
+    b16 = b.to(bf16)[:, None, None]
+    out["host_us"] = {
+        "bias_relu_": host_us(lambda: ep.bias_relu_(y, b)),
+        "residual_ (skip conv, relu copy)": host_us(lambda: ep.residual_(y, b, s, sb, True)),
+        "aten add_ (a bias add)": host_us(lambda: y.add_(b16)),
+        "aten bias cast": host_us(lambda: b.to(bf16)),
+        "aten relu": host_us(lambda: torch.relu(y)),
+    }
+    print(f"  [{card}] host us a call: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in out["host_us"].items()))
+    del y, s
+
+    # whole 170³ volumes through the serving stream, the route open and closed
+    cube = 170
+    task = make_task("hpunet", dtype=bf16, seed=0)
+    g = torch.Generator().manual_seed(18)
+    with torch.no_grad():  # biases well away from 0, so their bf16 rounding counts
+        for m in task.net.modules():
+            if isinstance(m, Conv2d) and m.bias is not None:
+                m.bias.copy_(0.05 * torch.randn(m.bias.shape, generator=g))
+    vol = synthetic_volume(cube, seed=180)[0]
+    # the class head balanced on 4 planes of each view through the middle
+    # half, max-normalized as served (each class's median logit 0, their
+    # spread 1), so that every class has voxels
+    with torch.no_grad():
+        v, idx = torch.from_numpy(vol).cuda(), torch.linspace(cube // 4, 3 * cube // 4, 4).long()
+        planes = normalize_slabs(torch.cat([v[idx], v[:, idx].transpose(0, 1),
+                                            v[:, :, idx].permute(2, 0, 1)]))
+        logits = task.net(planes[..., None]).flatten(0, -2)
+        m = logits.median(dim=0).values
+        k = 1 / (logits - m).std(dim=0).mean()
+        task.net.logits.weight.mul_(k)
+        task.net.logits.bias.sub_(m).mul_(k)
+        del v, planes, logits
+    ev = VolumeEvaluator(task, n_samples=5, num_views=3, input_dtype="uint8")
+    chunks = eval_chunk_plan(3 * cube, cube, cube, 0)[1]
+
+    def served():
+        t0 = time.perf_counter()
+        (labels, entropy), = ev.predict_volumes_pipelined([vol], seed=3, want_entropy=True)
+        return labels, entropy, time.perf_counter() - t0
+
+    served()
+    ep.bias_relu_.launches = ep.residual_.launches = 0
+    fused = served()
+    launches = (ep.bias_relu_.launches, ep.residual_.launches)
+    route = hprob_unet._fused
+    hprob_unet._fused = lambda *a: False
+    try:
+        served()
+        eager = served()
+    finally:
+        hprob_unet._fused = route
+    closed = (ep.bias_relu_.launches, ep.residual_.launches)
+    equal = all(np.array_equal(a, b) for a, b in zip(fused[:2], eager[:2]))
+    classes = np.bincount(fused[0].astype(np.int64).ravel(), minlength=3).tolist()
+    want = (90 * chunks, 45 * chunks)
+    print(f"  [{card}] a 170³ volume (3 views, {chunks} chunks of 5 draws) through "
+          f"predict_volumes_pipelined: labels and entropy bit-equal to ResBlock.forward {equal} "
+          f"(voxels a class {classes}); epilogue launches a volume bias_relu_ {launches[0]}, "
+          f"residual_ {launches[1]} (want {want[0]} + {want[1]}); wall s a volume: route open "
+          f"{fused[2]:.3f}, closed {eager[2]:.3f}")
+    require(closed == launches, f"the closed route launched: {launches} -> {closed}")
+    require(equal, "the routed HPU-Net's labels or entropy differ from ResBlock.forward's")
+    require(launches == want, f"epilogue launches a volume {launches}, not {want}")
+    out["volume"] = {"bit_equal": equal, "launches": list(launches), "classes": classes,
+                     "fused_s": fused[2], "eager_s": eager[2]}
+    del ev, task
     torch.cuda.empty_cache()
     return out
 
@@ -4898,6 +5095,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     summary["epilogue"] = phase_epilogue(card)
     clock.append(("epilogue", time.perf_counter()))
+    summary["hpu_epilogue"] = phase_hpu_epilogue(card)
+    clock.append(("hpu_epilogue", time.perf_counter()))
     summary["phase_s"] = {name: b - a for (_, a), (name, b) in zip(clock, clock[1:])}
     summary["phase_s"]["build"] = build_s
     print(f"seconds by phase: { {k: round(v, 1) for k, v in summary['phase_s'].items()} }; "
@@ -4947,6 +5146,12 @@ def main() -> int:
                     "ms_a_volume": {v: epilogue[f"{v}_ms_a_volume"] for v in ("3view", "6view")},
                     "launches_per_volume": {v: r["launches_per_volume"]
                                             for v, r in epilogue["volumes"].items()}})
+    hpu = summary["hpu_epilogue"]
+    kernels.append({"name": "hpu_epilogue", "route": "cuda",
+                    "source": "pmpu_tpu_torch/ops/cuda/csrc/hpu_epilogue.cu",
+                    "replaces": "none (the JAX package has no HPU-Net)", "cases": hpu["cases"],
+                    "host_us": hpu["host_us"], "volume": hpu["volume"],
+                    "launches_per_volume": sum(hpu["volume"]["launches"])})
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:

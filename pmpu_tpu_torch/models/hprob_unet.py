@@ -27,6 +27,11 @@ bf16 as in ``unet.py``: parameters f32, each conv casts to the compute dtype,
 the heads and z in f32, z cast to the compute dtype where it is
 concatenated, the class logits cast to f32. Public tensors are NHWC;
 inside, NCHW in channels_last memory.
+
+In inference on the card (grad off, bf16 convs of a CUDA tensor) a level's
+blocks run as cuDNN's convs without their biases, each followed by one
+launch of the ``hpu_epilogue`` kernels, bit-equal to ``ResBlock.forward``
+(``run_blocks``).
 """
 
 from __future__ import annotations
@@ -38,7 +43,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from pmpu_tpu_torch.models import initializers as pinit
-from pmpu_tpu_torch.models.unet import Conv2d, _pad_to_match, to_nchw, to_nhwc
+from pmpu_tpu_torch.models.unet import Conv2d, _channels_last, _pad_to_match, to_nchw, to_nhwc
+from pmpu_tpu_torch.ops.cuda import hpu_epilogue as epilogue
+from pmpu_tpu_torch.utils import profiling
 
 # the published LIDC setting
 CHANNELS_PER_BLOCK = (24, 48, 96, 192, 192, 192, 192, 192)
@@ -68,6 +75,54 @@ class ResBlock(nn.Module):
 
 def _blocks(cin, c, d, n, convs, dtype):
     return nn.ModuleList(ResBlock(cin if i == 0 else c, c, d, convs, dtype) for i in range(n))
+
+
+def _fused(blocks, x) -> bool:
+    """Whether a level's ``blocks`` run fused on ``x``, decided from the
+    input and the modules: inference (grad off, no NaN-check hook) of bf16
+    convs on a bf16 channels_last CUDA tensor, with cuDNN on (ATen then adds
+    a conv's bias as a pass of its own, whose rounding the kernels repeat,
+    and keeps the input's memory format), f32 biases, and outputs the
+    kernels take. ``ResBlock`` builds its convs to keep the map's size."""
+    if not (x.is_cuda and x.dtype == torch.bfloat16 and not torch.is_grad_enabled()
+            and profiling._nan_handle is None and torch.backends.cudnn.enabled
+            and _channels_last(x)):
+        return False
+    pixels = x.numel() // x.shape[1]
+    for b in blocks:
+        if type(b) is not ResBlock:
+            return False
+        for conv in (*b.convs, *(() if b.skip is None else (b.skip,))):
+            if not (type(conv) is Conv2d and conv.compute_dtype in (None, torch.bfloat16)
+                    and conv.bias is not None and conv.bias.dtype == torch.float32
+                    and epilogue.takes_shape(pixels * conv.out_channels, conv.out_channels)):
+                return False
+    return True
+
+
+def run_blocks(blocks, x):
+    """A level's residual blocks on ``x``. Where ``_fused`` admits them, each
+    conv runs without its bias and one epilogue launch finishes it: after a
+    3×3 conv the bias and the next conv's ReLU in place; after the block's
+    1×1 conv its bias, the skip (``x``, or the 1×1 skip conv without its
+    bias, whose bias the launch adds), the residual add and, where another
+    block follows, that block's input ReLU into a second tensor. The level's
+    first ReLU stays ATen's. The fused blocks call their conv modules but
+    not themselves, so a block's own forward hooks do not run (the NaN
+    checks' global hook closes the route). Otherwise ``ResBlock.forward``."""
+    if not _fused(blocks, x):
+        for b in blocks:
+            x = b(x)
+        return x
+    r = F.relu(x)
+    for i, b in enumerate(blocks):
+        for conv in b.convs[:-1]:
+            r = epilogue.bias_relu_(conv(r, with_bias=False), conv.bias)
+        last, skip = b.convs[-1], b.skip
+        y = last(r, with_bias=False)
+        s, skip_bias = (x, None) if skip is None else (skip(x, with_bias=False), skip.bias)
+        x, r = epilogue.residual_(y, last.bias, s, skip_bias, relu=i + 1 < len(blocks))
+    return x
 
 
 def _nhwc(t, draws: int, n: int):
@@ -138,8 +193,7 @@ class HierarchicalProbUNet(nn.Module):
         for level, blocks in enumerate(self.encoder):
             if level:
                 x = F.avg_pool2d(x, 2, 2)
-            for b in blocks:
-                x = b(x)
+            x = run_blocks(blocks, x)
             enc.append(x)
         return enc
 
@@ -164,8 +218,7 @@ class HierarchicalProbUNet(nn.Module):
                 z = mu + torch.exp(log_sigma) * eps[k].flatten(0, 1)
             lo = _cat([z.to(feats.dtype), feats], draws, n)
             feats = _cat([_up(lo, enc[-2 - k]), enc[-2 - k]], draws, n)
-            for b in blocks:
-                feats = b(feats)
+            feats = run_blocks(blocks, feats)
         return feats
 
     def stitch(self, feats, enc):
@@ -176,8 +229,7 @@ class HierarchicalProbUNet(nn.Module):
         for j, blocks in enumerate(self.stitch_blocks):
             skip = enc[len(enc) - 2 - len(self.latent_dims) - j]
             feats = _cat([_up(feats, skip), skip], draws, n)
-            for b in blocks:
-                feats = b(feats)
+            feats = run_blocks(blocks, feats)
         return to_nhwc(self.logits(feats).float()).unflatten(0, (draws, n))
 
     def forward(self, x_nhwc, eps=None):

@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("fcomb_mean", "slice_gather", "qconv", "oblique_gather", "bias_bn_relu")
+SOURCES = ("fcomb_mean", "slice_gather", "qconv", "oblique_gather", "bias_bn_relu", "hpu_epilogue")
 # library name -> (source, extra nvcc flags); built only when asked for
 VARIANTS = {"qconv_clocks": ("qconv", ("-DPMPU_QCONV_CLOCKS",))}
 NVCC_FLAGS = (
